@@ -1,0 +1,361 @@
+"""RRTMGP gas optics in PyTorch.
+
+Port of the reference gas-optics kernels
+(``src_kernels_cuda/gas_optics_rrtmgp_kernels.cu``):
+
+* :func:`interpolation` — ``interpolation_kernel`` (:317-395): per cell the
+  temperature / pressure / binary-species-eta indices and weights, kept in
+  the flat component-major layout (flavor fastest) that the gas-optics
+  kernel reads;
+* the major-gas trilinear k-table interpolation (:398-443), the Planck
+  fraction (:262-271), the Rayleigh table (:674-718) and the ragged
+  minor-gas intervals (:458-579).  On the card these run as ONE launch per
+  spectral chunk of the hand-written kernel ``csrc/gas_optics_interp.cu``
+  (through :func:`tau_majmin_and_pfrac` / :func:`tau_majmin_and_rayleigh`);
+  the plain functions below are its twin, taken for CPU tensors;
+* the Planck sources (:196-314), the Rayleigh/absorption combination
+  (:721-746) and the column amounts (``src/Gas_optics_rrtmgp.cpp:764-792``).
+
+Everything is shape-polymorphic in (ncol, nlay).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from .. import config
+from ..models.kdist import KDist
+from ..models.types import SourceFuncLW
+from .fluxes import expand_bands_to_gpt
+from .kernels import gas_optics_interp as _b1
+
+
+@dataclasses.dataclass(frozen=True)
+class Interp:
+    """Interpolation indices/weights (all indices 0-based lower corners).
+
+    Per-flavor arrays are flat in the last axis, component-major with the
+    flavor fastest: (nflav, 2, 2, 2) becomes one axis of 8*nflav."""
+
+    jtemp0: torch.Tensor    # (ncol, nlay) int32 in [0, ntemp-2]
+    jpress0: torch.Tensor   # (ncol, nlay) int32: 0-based row of jpress (1-based) - 1
+    fpress: torch.Tensor    # (ncol, nlay) pressure interpolation fraction
+    tropo: torch.Tensor     # (ncol, nlay) bool
+    itropo01: torch.Tensor  # (ncol, nlay) int32: 0 troposphere / 1 upper
+    jeta0: torch.Tensor     # (ncol, nlay, 2*nflav) int32; index itemp*F + f
+    col_mix: torch.Tensor   # (ncol, nlay, 2*nflav); index itemp*F + f
+    fminor: torch.Tensor    # (ncol, nlay, 4*nflav); index (itemp*2 + deta)*F + f
+    fmajor: torch.Tensor    # (ncol, nlay, 8*nflav); index (itemp*4+dp*2+deta)*F + f
+
+
+def interpolation(kd: KDist, play, tlay, col_gas) -> Interp:
+    """Vectorized port of interpolation_kernel (:317-395)."""
+    dtype = play.dtype
+    ntemp, neta, npres = kd.ntemp, kd.neta, kd.press_ref_log.shape[0]
+    tiny = config.tiny(dtype)
+
+    jtemp = torch.clamp(
+        ((tlay - (kd.temp_ref_min - kd.temp_ref_delta)) / kd.temp_ref_delta)
+        .to(torch.int32), 1, ntemp - 1)
+    ftemp = (tlay - kd.temp_ref[(jtemp - 1).long()]) / kd.temp_ref_delta
+
+    log_play = torch.log(play)
+    locpress = 1.0 + (log_play - kd.press_ref_log[0]) / kd.press_ref_log_delta
+    jpress = torch.clamp(locpress.to(torch.int32), 1, npres - 1)
+    fpress = locpress - jpress.to(dtype)
+
+    tropo = log_play > kd.press_ref_trop_log
+    itropo01 = torch.where(tropo, 0, 1).to(torch.int32)
+
+    # --- per-flavor binary-species mixing ---
+    gas1 = [f[0] for f in kd.flavor]
+    gas2 = [f[1] for f in kd.flavor]
+    cg1 = col_gas[:, :, gas1]   # (ncol, nlay, nflav)
+    cg2 = col_gas[:, :, gas2]
+
+    # eta ratio vmr1/vmr2 at (itropo, jtemp0 + itemp), precomputed per
+    # flavor at load time (KDist.ratio_rows, rows = itropo*ntemp + jtemp).
+    rows = (itropo01 * ntemp + (jtemp - 1)).long()
+    ratio = torch.stack([kd.ratio_rows[rows], kd.ratio_rows[rows + 1]],
+                        dim=-1)                                   # (...,F,2)
+
+    col_mix = cg1[..., None] + ratio * cg2[..., None]             # (...,F,2)
+    eta = torch.where(col_mix > 2.0 * tiny, cg1[..., None] / col_mix,
+                      torch.full((), 0.5, dtype=dtype, device=play.device))
+
+    loceta = eta * (neta - 1)
+    jeta = torch.clamp(loceta.to(torch.int32) + 1, max=neta - 1)  # 1-based
+    feta = torch.remainder(loceta, 1.0)
+    ftt = torch.stack([1.0 - ftemp, ftemp], dim=-1)[:, :, None, :]
+
+    fminor = torch.stack([(1.0 - feta) * ftt, feta * ftt], dim=-1)
+    fp = fpress[:, :, None, None, None]
+    fmajor = torch.stack([(1.0 - fp) * fminor, fp * fminor], dim=-2)
+
+    ncol, nlay = play.shape
+    # Component-major flat layout: flavor is the fastest index.
+    flat = lambda a: torch.movedim(a, 2, -1).reshape(ncol, nlay, -1)
+    return Interp(
+        jtemp0=(jtemp - 1).contiguous(),
+        jpress0=(jpress - 1).contiguous(),
+        fpress=fpress,
+        tropo=tropo,
+        itropo01=itropo01,
+        jeta0=flat(jeta - 1).contiguous(),
+        col_mix=flat(col_mix).contiguous(),
+        fminor=flat(fminor).contiguous(),
+        fmajor=flat(fmajor).contiguous(),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def gpoint_flavor_tensor(gpoint_flavor: tuple, device: torch.device):
+    """(2, G) int32 flavor of each g-point, troposphere row then upper."""
+    return torch.tensor(gpoint_flavor, dtype=torch.int32, device=device)
+
+
+def _per_g(x, comp: int, nflav: int, gf):
+    """Component ``comp`` of a flat per-flavor array, resolved to each
+    g-point's flavor: (ncol, nlay, k*F) -> (ncol, nlay, G)."""
+    return torch.gather(x[:, :, comp * nflav:(comp + 1) * nflav], 2, gf)
+
+
+def _slab_rows(kd: KDist, interp: Interp):
+    """Row indices into kmajor_rows/planck_rows: (ncol, nlay, 2itemp, 2press),
+    r = (jpress0 + itropo + dp) * ntemp + (jtemp0 + i)."""
+    T = kd.ntemp
+    base = (interp.jpress0 + interp.itropo01) * T + interp.jtemp0
+    di = torch.arange(2, device=base.device)[:, None]
+    dp = torch.arange(2, device=base.device)[None, :] * T
+    return base.long()[:, :, None, None] + di + dp
+
+
+def _interp3d_rows(kd: KDist, table_rows, interp: Interp, scale_by_colmix):
+    """Trilinear interpolation over a row-layout table
+    ((npress+1)*ntemp, neta, ngpt): the math of
+    gas_optical_depths_major_kernel (:398-443) / Planck_source_kernel's
+    pfrac (:262-271)."""
+    F = kd.nflav
+    G = table_rows.shape[2]
+    gf = gpoint_flavor_tensor(kd.gpoint_flavor, table_rows.device).long()[
+        interp.itropo01.long()]                                   # (C,L,G)
+    rows = _slab_rows(kd, interp)                                 # (C,L,2,2)
+    g_ar = torch.arange(G, device=table_rows.device)
+    out = 0.0
+    for i in range(2):
+        je = _per_g(interp.jeta0, i, F, gf).long()
+        acc = 0.0
+        for dp in range(2):
+            r = rows[:, :, i, dp, None]
+            w0 = _per_g(interp.fmajor, i * 4 + dp * 2, F, gf)
+            w1 = _per_g(interp.fmajor, i * 4 + dp * 2 + 1, F, gf)
+            acc = acc + (w0 * table_rows[r, je, g_ar]
+                         + w1 * table_rows[r, je + 1, g_ar])
+        if scale_by_colmix:
+            out = out + _per_g(interp.col_mix, i, F, gf) * acc
+        else:
+            out = out + acc
+    return out
+
+
+def _krayl_interp(kd: KDist, interp: Interp):
+    """Rayleigh k (before the column-amount factor): 2 temperature corners
+    x 2 eta on krayl_rows (rows itropo*ntemp + jtemp)."""
+    F = kd.nflav
+    table = kd.krayl_rows
+    G = table.shape[2]
+    gf = gpoint_flavor_tensor(kd.gpoint_flavor, table.device).long()[
+        interp.itropo01.long()]
+    base = (interp.itropo01 * kd.ntemp + interp.jtemp0).long()[:, :, None]
+    g_ar = torch.arange(G, device=table.device)
+    kloc = 0.0
+    for i in range(2):
+        je = _per_g(interp.jeta0, i, F, gf).long()
+        w0 = _per_g(interp.fminor, i * 2, F, gf)
+        w1 = _per_g(interp.fminor, i * 2 + 1, F, gf)
+        kloc = kloc + (w0 * table[base + i, je, g_ar]
+                       + w1 * table[base + i, je + 1, g_ar])
+    return kloc
+
+
+def tau_major(kd: KDist, interp: Interp):
+    """tau from major gases: (ncol, nlay, ngpt)."""
+    return _interp3d_rows(kd, kd.kmajor_rows, interp, scale_by_colmix=True)
+
+
+def planck_fraction(kd: KDist, interp: Interp):
+    """Planck fraction per g-point: (ncol, nlay, ngpt)."""
+    return _interp3d_rows(kd, kd.planck_rows, interp, scale_by_colmix=False)
+
+
+def _spec_scaling(kd, spec, maskf, play, tlay, col_gas):
+    """Per-interval scaling column (gas_optical_depths_minor_kernel
+    :494-519), with the atmosphere mask folded in."""
+    dtype = play.dtype
+    scaling = col_gas[:, :, spec.idx_minor]
+    if spec.scales_with_density:
+        scaling = scaling * (0.01 * play / tlay)
+        if spec.idx_scaling > 0:
+            # Guard degenerate layers (col_dry == 0, e.g. duplicated
+            # pressure levels at the model top) against 0/0 -> NaN.
+            vmr_fact = 1.0 / torch.clamp(col_gas[:, :, 0], min=config.tiny(dtype))
+            dry_fact = 1.0 / (1.0 + col_gas[:, :, kd.idx_h2o] * vmr_fact)
+            sx = col_gas[:, :, spec.idx_scaling] * vmr_fact * dry_fact
+            scaling = scaling * ((1.0 - sx) if spec.scale_by_complement
+                                 else sx)
+    return scaling * maskf
+
+
+def minor_specs(kd: KDist):
+    """The chunk's minor intervals in kernel order: lower then upper, each
+    in spec order, as (atmosphere 0/1, spec) pairs."""
+    return ([(0, s) for s in kd.minor_lower]
+            + [(1, s) for s in kd.minor_upper])
+
+
+def minor_scaling(kd: KDist, interp: Interp, play, tlay, col_gas):
+    """(ncol, nlay, nspec) scaling of every minor interval of the chunk in
+    :func:`minor_specs` order, the atmosphere mask folded in (zero where
+    the cell lies in the other atmosphere)."""
+    masks = (interp.tropo.to(play.dtype), (~interp.tropo).to(play.dtype))
+    cols = [_spec_scaling(kd, spec, masks[atm], play, tlay, col_gas)
+            for atm, spec in minor_specs(kd)]
+    if not cols:
+        return play.new_zeros(play.shape + (0,))
+    return torch.stack(cols, dim=-1).contiguous()
+
+
+def _add_minor(kd: KDist, interp: Interp, sc, tau):
+    """Add every minor interval's contribution ltau * sc into ``tau``, in
+    :func:`minor_specs` order (2 temperature x 2 eta corners on the
+    (ntemp, neta, ncontrib) tables)."""
+    F = kd.nflav
+    jt = interp.jtemp0.long()[:, :, None]
+    fm = interp.fminor
+    tau = tau.clone()
+    tables = (kd.kminor_lower_trows, kd.kminor_upper_trows)
+    for k, (atm, spec) in enumerate(minor_specs(kd)):
+        tbl = tables[atm]
+        f = spec.flavor
+        ng = spec.gpt_end - spec.gpt_start
+        cols = torch.arange(spec.kminor_start, spec.kminor_start + ng,
+                            device=tbl.device)
+        je0 = interp.jeta0[:, :, f].long()[:, :, None]
+        je1 = interp.jeta0[:, :, F + f].long()[:, :, None]
+        ltau = ((fm[:, :, 0 * F + f, None] * tbl[jt, je0, cols]
+                 + fm[:, :, 1 * F + f, None] * tbl[jt, je0 + 1, cols])
+                + (fm[:, :, 2 * F + f, None] * tbl[jt + 1, je1, cols]
+                   + fm[:, :, 3 * F + f, None] * tbl[jt + 1, je1 + 1, cols]))
+        tau[:, :, spec.gpt_start:spec.gpt_end] += ltau * sc[:, :, k, None]
+    return tau
+
+
+def majmin_plain(kd: KDist, interp: Interp, sc, rayleigh: bool):
+    """Plain twin of the gas-optics kernel for one spectral chunk: returns
+    (tau_major*col_mix + minor, pfrac) or, with ``rayleigh``,
+    (tau_abs, krayl before the column-amount factor)."""
+    tau = _add_minor(kd, interp, sc, tau_major(kd, interp))
+    second = (_krayl_interp(kd, interp) if rayleigh
+              else planck_fraction(kd, interp))
+    return tau, second
+
+
+def tau_minor(kd: KDist, interp: Interp, play, tlay, col_gas, tau):
+    """Minor-gas optical depth, both atmospheres; adds into ``tau``."""
+    return _add_minor(kd, interp,
+                      minor_scaling(kd, interp, play, tlay, col_gas), tau)
+
+
+def tau_majmin_and_pfrac(kd: KDist, interp: Interp, play, tlay, col_gas):
+    """kmajor + MINOR + planck fraction for one spectral chunk: one launch
+    of the gas-optics kernel on the card.  Returns (tau, pfrac), each
+    (ncol, nlay, ngpt)."""
+    sc = minor_scaling(kd, interp, play, tlay, col_gas)
+    return _b1.gas_optics_interp(kd, interp, sc, rayleigh=False)
+
+
+def tau_majmin_and_rayleigh(kd: KDist, interp: Interp, play, tlay, col_gas,
+                            col_dry):
+    """kmajor + MINOR + krayl for one spectral chunk: one launch of the
+    gas-optics kernel on the card.  Returns (tau_abs, tau_rayleigh)."""
+    sc = minor_scaling(kd, interp, play, tlay, col_gas)
+    tau, kloc = _b1.gas_optics_interp(kd, interp, sc, rayleigh=True)
+    fac = (col_gas[:, :, kd.idx_h2o] + col_dry)[:, :, None]
+    return tau, kloc * fac
+
+
+def tau_rayleigh(kd: KDist, interp: Interp, col_gas, col_dry):
+    """Rayleigh scattering optical depth (compute_tau_rayleigh_kernel
+    :674-718)."""
+    fac = (col_gas[:, :, kd.idx_h2o] + col_dry)[:, :, None]
+    return _krayl_interp(kd, interp) * fac
+
+
+def combine_abs_and_rayleigh(tau_abs, tau_ray):
+    """combine_abs_and_rayleigh_kernel (:721-746): tau, ssa, g."""
+    eps = config.eps(tau_abs.dtype)
+    tau = tau_abs + tau_ray
+    ssa = torch.where(tau > 2.0 * eps,
+                      tau_ray / torch.where(tau == 0.0, 1.0, tau), 0.0)
+    return tau, ssa, torch.zeros_like(tau)
+
+
+def _interp1d_planck(temp, kd: KDist):
+    """interpolate1D over totplnk (gas_optics_rrtmgp_kernels.cu:1-13),
+    returning band Planck radiance expanded to g-points: temp.shape + (ngpt,)."""
+    nT = kd.totplnk.shape[0]
+    dtype = temp.dtype
+    val0 = (temp - kd.temp_ref_min) / kd.totplnk_delta
+    ival = val0.to(torch.int32)
+    frac = val0 - ival.to(dtype)
+    idx = torch.clamp(ival + 1, 1, nT - 1).long()
+    lo = kd.totplnk[idx - 1]
+    hi = kd.totplnk[idx]
+    b = lo + frac[..., None] * (hi - lo)   # (..., nbnd)
+    return expand_bands_to_gpt(b, kd.gpt2band)
+
+
+def planck_source(kd: KDist, interp: Interp, tlay, tlev, tsfc,
+                  sfc_lay: int, pfrac=None) -> SourceFuncLW:
+    """Planck_source_kernel (:196-314).  ``sfc_lay`` is the 0-based layer
+    adjacent to the surface.  ``pfrac`` may come from
+    :func:`tau_majmin_and_pfrac`."""
+    if pfrac is None:
+        pfrac = planck_fraction(kd, interp)
+
+    lay_src = pfrac * _interp1d_planck(tlay, kd)
+
+    blev = _interp1d_planck(tlev, kd)  # (ncol, nlay+1, ngpt)
+    nlay = tlay.shape[1]
+    lev_inner = torch.sqrt(pfrac[:, 1:] * pfrac[:, :-1]) * blev[:, 1:nlay]
+    lev_src = torch.cat([
+        pfrac[:, :1] * blev[:, :1],
+        lev_inner,
+        pfrac[:, nlay - 1:nlay] * blev[:, nlay:nlay + 1],
+    ], dim=1)
+
+    bsfc = _interp1d_planck(tsfc, kd)                       # (ncol, ngpt)
+    bsfc2 = _interp1d_planck(tsfc + config.DELTA_TSURF, kd)
+    sfc_src = pfrac[:, sfc_lay] * bsfc
+    sfc_src_jac = pfrac[:, sfc_lay] * (bsfc2 - bsfc)
+    return SourceFuncLW(sfc_src=sfc_src, sfc_src_jac=sfc_src_jac,
+                        lay_src=lay_src, lev_src=lev_src)
+
+
+def build_col_gas(vmr, col_dry):
+    """(ncol, nlay, ngas) vmr + (ncol, nlay) col_dry -> col_gas with the dry
+    column at index 0 (the reference's offset-indexed array,
+    ``src/Gas_optics_rrtmgp.cpp:1152-1160``)."""
+    return torch.cat([col_dry[:, :, None], vmr * col_dry[:, :, None]], dim=2)
+
+
+def get_col_dry(vmr_h2o, plev):
+    """Hydrostatic dry-air column (src/Gas_optics_rrtmgp.cpp:764-792)."""
+    delta_plev = torch.abs(plev[:, :-1] - plev[:, 1:])
+    m_air = (config.M_DRY + config.M_H2O * vmr_h2o) / (1.0 + vmr_h2o)
+    col = 10.0 * delta_plev * config.AVOGADRO / (
+        1000.0 * m_air * 100.0 * config.GRAV)
+    return col / (1.0 + vmr_h2o)

@@ -139,6 +139,11 @@ def _jax_luts(tmp_path):
 
 
 def _close(got, ref, keys):
+    """rtol 1e-10 with an absolute floor of 1e-10 of each array's largest
+    magnitude: the by-band down-fluxes just below the top are ~1e-10 of the
+    array's maximum, where 1 - exp(-tau*D) cancels for tau ~ 1e-10 and the
+    two libraries' float64 exp, equal to the last bit elsewhere, leave
+    ~1e-6 relative in those elements."""
     for k in keys:
         b = np.asarray(ref[k])
         np.testing.assert_allclose(got[k].numpy(), b, rtol=1e-10,

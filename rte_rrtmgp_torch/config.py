@@ -11,11 +11,14 @@ The dtype guards are those of the reference's FP64/FP32 builds
 Kernel dispatch is by tensor device: a CUDA tensor goes through the
 hand-written kernels of ``ops/kernels``, a CPU tensor through their plain
 PyTorch twins.  There is no switch that turns the kernels off on the card.
+The two layout switches below choose WHICH kernels a step runs
+(:func:`cellw_enabled`, :func:`layer_major_enabled`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -53,6 +56,27 @@ SOLAR_B_OFFSET = 0.00066696
 # Surface Planck-source Jacobian temperature perturbation
 # (src_kernels_cuda/gas_optics_rrtmgp_kernels_launchers.cu:474).
 DELTA_TSURF = 1.0
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    env = os.environ.get(name)
+    if env is None:
+        return default
+    return env not in ("0", "false", "off")
+
+
+def cellw_enabled() -> bool:
+    """Gas optics from per-cell weights resolved in-kernel (the default
+    kernel, ``csrc/gas_optics_interp.cu``) rather than from precomputed
+    per-g weight planes (``csrc/interp_rows.cu``).  ``RTE_RRTMGP_PALLAS_CELLW``,
+    default on."""
+    return _env_flag("RTE_RRTMGP_PALLAS_CELLW", True)
+
+
+def layer_major_enabled() -> bool:
+    """Layer-major (nlay*ncol, G) planes from the gas optics into the
+    layer-major solver kernels.  ``RTE_RRTMGP_LAYERMAJOR``, default off."""
+    return _env_flag("RTE_RRTMGP_LAYERMAJOR", False)
 
 
 def resolve_device(device=None) -> torch.device:

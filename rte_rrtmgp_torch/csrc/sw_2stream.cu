@@ -1,24 +1,33 @@
 // Shortwave two-stream + adding solve, summed over g (float32).
 //
-// Replaces the TPU kernel rte_rrtmgp_tpu/ops/pallas/solver_kernels.py
-// `sw_2stream_broadband` (body `_sw_kernel`): per (column, g-point) the
-// Meador-Weaver gamma1-gamma4, k^2 floored at k_min, rdif/tdif, r_dir/t_dir
-// with the eps guard on 1-(k*mu0)^2 and the Ukkonen clamp, the direct beam
-// exp(-tau/mu0), the adding up-sweep of albedo and source from the surface
-// and the diffuse down-sweep (reference rte_solver_kernels.cu:196-286,
-// 543-655).  up, diffuse dn and dir are summed over g into (ncol, nlev);
-// the caller adds the direct beam to dn.
+// Replaces two TPU kernels of rte_rrtmgp_tpu/ops/pallas:
+//  * solver_kernels.py `sw_2stream_broadband` (body `_sw_kernel`), operands
+//    column-major (ncol, nlay, G): entry rrtmgp_sw_2stream_f32;
+//  * solver_layergrid.py `sw_2stream_broadband_lm` (bodies
+//    `_sw_dir_kernel`, `_sw_coeff_adding_kernel`, `_sw_flux_dn_kernel`),
+//    operands layer-major (nlay*ncol, G) with cell (c, l) at row
+//    l*ncol + c: entry rrtmgp_sw_2stream_lm_f32.  The TPU runs three
+//    calls (its grid carries each recurrence); here one launch runs the
+//    whole solve, as for the column-major form.
 //
-// What bounds it on the H100: bytes.  tau, ssa and g (three (ncol, nlay, G)
-// planes, 75.5 MB each at 2048x72x128) are read once; the outputs are
+// Per (column, g-point): the Meador-Weaver gamma1-gamma4, k^2 floored at
+// k_min, rdif/tdif, r_dir/t_dir with the eps guard on 1-(k*mu0)^2 and the
+// Ukkonen clamp, the direct beam exp(-tau/mu0), the adding up-sweep of
+// albedo and source from the surface and the diffuse down-sweep (reference
+// rte_solver_kernels.cu:196-286, 543-655).  up, diffuse dn and dir are
+// summed over g into (ncol, nlev); the caller adds the direct beam to dn.
+//
+// What bounds it on the H100: bytes.  tau, ssa and g (three plane-sized
+// inputs, 75.5 MB each at 2048x72x128) are read once; the outputs are
 // (ncol, nlev).  This first version also stages rdif, tdif and the two
 // direct-beam sources per layer and albedo and source per level in a
 // wrapper-allocated scratch (six planes written once and read once), since
 // six nlay-deep arrays per thread do not fit in registers.
 //
 // Design: one block per column, one thread per g-point (whole warps;
-// threads past G are masked and add zeros).  Scratch is laid out
-// [col][layer][g], so a warp's accesses are coalesced.  Level sums go
+// threads past G are masked and add zeros).  The scratch planes take the
+// operands' layout, [col][layer][g] or [layer][col][g]; g is contiguous in
+// both, so a warp's accesses are coalesced either way.  Level sums go
 // through warp shuffles into shared memory (reduce.cuh).
 
 #include <cuda_runtime.h>
@@ -27,6 +36,7 @@
 
 namespace {
 
+template <bool LM>
 __global__ void sw_2stream_kernel(
     const float* __restrict__ tau, const float* __restrict__ ssa,
     const float* __restrict__ gasy, const float* __restrict__ mu0,
@@ -43,10 +53,14 @@ __global__ void sw_2stream_kernel(
     const int nlev = nlay + 1;
     const int nwarp = blockDim.x >> 5;
 
+    // Row l of the column: offset + l*ls in every plane.  Column-major
+    // (c*nrow + l)*G: offset c*nrow*G, stride G; layer-major (l*ncol + c)*G:
+    // offset c*G, stride ncol*G.
     const long long lay_plane = (long long)ncol * nlay * G;
     const long long lev_plane = (long long)ncol * nlev * G;
-    const long long lay_off = c * nlay * G + g;
-    const long long lev_off = c * nlev * G + g;
+    const long long ls = LM ? (long long)ncol * G : G;
+    const long long lay_off = (LM ? c : c * nlay) * G + g;
+    const long long lev_off = (LM ? c : c * nlev) * G + g;
     float* rdif_s = scratch + lay_off;
     float* tdif_s = scratch + lay_plane + lay_off;
     float* sup_s = scratch + 2 * lay_plane + lay_off;
@@ -61,7 +75,7 @@ __global__ void sw_2stream_kernel(
     // --- two-stream coefficients + direct-beam sources, top down ---
     for (int l = 0; l < nlay; ++l) {
         if (active) {
-            const long long o = (long long)l * G;
+            const long long o = (long long)l * ls;
             const float t = tau[lay_off + o];
             const float w = ssa[lay_off + o];
             const float a = gasy[lay_off + o];
@@ -113,10 +127,10 @@ __global__ void sw_2stream_kernel(
     if (active) {
         float alb = alb_dif[c * G + g];
         float src = fdir * alb_dir[c * G + g];
-        alb_s[(long long)nlay * G] = alb;
-        src_s[(long long)nlay * G] = src;
+        alb_s[(long long)nlay * ls] = alb;
+        src_s[(long long)nlay * ls] = src;
         for (int l = nlay - 1; l >= 0; --l) {
-            const long long o = (long long)l * G;
+            const long long o = (long long)l * ls;
             const float rdif = rdif_s[o];
             const float tdif = tdif_s[o];
             const float denom = 1.0f / (1.0f - rdif * alb);
@@ -138,10 +152,10 @@ __global__ void sw_2stream_kernel(
     rrtmgp::level_partial(part, 1, nwarp, nlev, 0, d);
     for (int l = 0; l < nlay; ++l) {
         if (active) {
-            const long long o = (long long)l * G;
+            const long long o = (long long)l * ls;
             const float rdif = rdif_s[o];
-            const float alb1 = alb_s[o + G];
-            const float src1 = src_s[o + G];
+            const float alb1 = alb_s[o + ls];
+            const float src1 = src_s[o + ls];
             const float denom = 1.0f / (1.0f - rdif * alb1);
             d = (tdif_s[o] * d + rdif * src1 + sdn_s[o]) * denom;
             u = d * alb1 + src1;
@@ -154,6 +168,25 @@ __global__ void sw_2stream_kernel(
     rrtmgp::write_levels(part, 3, nwarp, nlev, c, out);
 }
 
+template <bool LM>
+int launch(const float* tau, const float* ssa, const float* g,
+           const float* mu0, const float* alb_dir, const float* alb_dif,
+           const float* inc_dir, const float* inc_dif, float* up, float* dn,
+           float* dir, float* scratch, int ncol, int nlay, int G, float kmin,
+           float tmin, void* stream)
+{
+    size_t smem = 0;
+    cudaError_t err = rrtmgp::partial_smem(sw_2stream_kernel<LM>, 3, G,
+                                           nlay + 1, &smem);
+    if (err != cudaSuccess) return (int)err;
+    if (ncol > 0)
+        sw_2stream_kernel<LM><<<ncol, rrtmgp::block_threads(G), smem,
+                                (cudaStream_t)stream>>>(
+            tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn,
+            dir, scratch, ncol, nlay, G, kmin, tmin);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rrtmgp_sw_2stream_f32(
@@ -162,14 +195,18 @@ extern "C" int rrtmgp_sw_2stream_f32(
     const float* inc_dif, float* up, float* dn, float* dir, float* scratch,
     int ncol, int nlay, int G, float kmin, float tmin, void* stream)
 {
-    size_t smem = 0;
-    cudaError_t err = rrtmgp::partial_smem(sw_2stream_kernel, 3, G, nlay + 1,
-                                           &smem);
-    if (err != cudaSuccess) return (int)err;
-    if (ncol > 0)
-        sw_2stream_kernel<<<ncol, rrtmgp::block_threads(G), smem,
-                            (cudaStream_t)stream>>>(
-            tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn, dir,
-            scratch, ncol, nlay, G, kmin, tmin);
-    return (int)cudaGetLastError();
+    return launch<false>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
+                         inc_dif, up, dn, dir, scratch, ncol, nlay, G, kmin,
+                         tmin, stream);
+}
+
+extern "C" int rrtmgp_sw_2stream_lm_f32(
+    const float* tau, const float* ssa, const float* g, const float* mu0,
+    const float* alb_dir, const float* alb_dif, const float* inc_dir,
+    const float* inc_dif, float* up, float* dn, float* dir, float* scratch,
+    int ncol, int nlay, int G, float kmin, float tmin, void* stream)
+{
+    return launch<true>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
+                        inc_dif, up, dn, dir, scratch, ncol, nlay, G, kmin,
+                        tmin, stream);
 }

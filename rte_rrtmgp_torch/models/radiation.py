@@ -12,8 +12,21 @@
   atmosphere at layer index 0; inputs in the opposite orientation are
   flipped in and the outputs flipped back.
 
-On the card every chunk makes one launch of the gas-optics kernel, one LW
-sweep launch per Gauss angle or one SW two-stream launch (``ops/kernels``).
+Three layouts of the same function, chosen by ``cellw`` and
+``layer_major`` (``None``: from the environment, ``config.cellw_enabled`` /
+``config.layer_major_enabled``).  On the card every chunk makes
+
+* default (cellw on, layer-major off): one launch of the per-cell-weight
+  gas-optics kernel, then one LW sweep launch per Gauss angle or one SW
+  two-stream launch;
+* ``cellw=False``: one launch of the weight-plane kernel for the major
+  gases (with planck_frac or krayl) and one for the minor gases when the
+  chunk has minor intervals, then the same solver launches;
+* ``layer_major=True`` (with cellw on, broadband output only, and a
+  k-distribution with minor intervals; otherwise the default layout): the
+  per-cell-weight kernel on layer-major inputs, so every (N, G) plane has
+  cell (c, l) at row l*ncol + c, then the layer-major solver kernels.
+
 All tensors live on the tables' device.
 """
 
@@ -24,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import config
 from ..ops import (aerosol_optics as aero_ops, cloud_optics as cloud_ops,
                    fluxes as flux_ops, gas_optics as gas_ops,
                    optics_ops, rte_lw, rte_sw)
@@ -42,11 +56,25 @@ def _flip_lay(a):
     return torch.flip(a, dims=(1,))
 
 
+def _layouts(kd: KDist, cellw, layer_major, broadband_only: bool):
+    """(cellw, lm): ``None`` resolved from the environment; layer-major
+    applies only with cellw on, broadband output only and a k-distribution
+    with minor intervals (the JAX package's predicate)."""
+    cellw = config.cellw_enabled() if cellw is None else bool(cellw)
+    layer_major = (config.layer_major_enabled() if layer_major is None
+                   else bool(layer_major))
+    lm = (layer_major and cellw and broadband_only
+          and bool(kd.minor_lower or kd.minor_upper))
+    return cellw, lm
+
+
 def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
                    vmr, col_dry, emis_sfc, lwp, iwp, rel, dei,
                    *, top_at_1: bool, gpt_chunk, output_bnd_fluxes: bool,
                    n_gauss_angles: int, with_clouds: bool,
-                   output_optical: bool = False):
+                   output_optical: bool = False,
+                   cellw: Optional[bool] = None,
+                   layer_major: Optional[bool] = None):
     if not top_at_1:
         p_lay, t_lay, vmr, col_dry = map(_flip_lay, (p_lay, t_lay, vmr, col_dry))
         p_lev, t_lev = map(_flip_lay, (p_lev, t_lev))
@@ -70,11 +98,35 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
     interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("lw_tau", "lay_source", "lev_source",
                                "sfc_source")} if output_optical else None
+    cellw, lm = _layouts(kd, cellw, layer_major,
+                         not output_bnd_fluxes and not output_optical)
+    if lm:
+        # Layer-major: the gas-optics kernel runs on (nlay, ncol) inputs and
+        # writes (nlay, ncol, G) = the (N, G) planes the solver reads.
+        lm_in = tuple(map(gas_ops.layer_major, (interp, p_lay, t_lay, col_gas)))
+        cld_tau_lm = gas_ops._cells(cld.tau, "lm") if with_clouds else None
 
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
+        if lm:
+            tau, pfrac = (a.reshape(nlay * ncol, g1 - g0) for a in
+                          gas_ops.tau_majmin_and_pfrac(kdc, *lm_in))
+            src = gas_ops.planck_source_lm(kdc, t_lay, t_lev, t_sfc,
+                                           sfc_lay=nlay - 1, pfrac_lm=pfrac,
+                                           ncol=ncol)
+            if with_clouds:
+                tau = tau + flux_ops.expand_bands_to_gpt(cld_tau_lm,
+                                                         kdc.gpt2band)
+            up_bb, dn_bb, _ = rte_lw.lw_solver_noscat_broadband_lm(
+                tau, src.lay_src, src.lev_src,
+                flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band),
+                src.sfc_src, src.sfc_src_jac, new(ncol, g1 - g0), ncol=ncol,
+                n_gauss_angles=n_gauss_angles)
+            flux_up = flux_up + up_bb
+            flux_dn = flux_dn + dn_bb
+            continue
         tau, pfrac = gas_ops.tau_majmin_and_pfrac(kdc, interp, p_lay, t_lay,
-                                                  col_gas)
+                                                  col_gas, cellw=cellw)
         src = gas_ops.planck_source(kdc, interp, t_lay, t_lev, t_sfc,
                                     sfc_lay=nlay - 1, pfrac=pfrac)
         if with_clouds:
@@ -126,7 +178,9 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                    *, top_at_1: bool, gpt_chunk, output_bnd_fluxes: bool,
                    with_clouds: bool, with_aerosols: bool,
                    delta_cloud: bool, delta_aerosol: bool,
-                   output_optical: bool = False):
+                   output_optical: bool = False,
+                   cellw: Optional[bool] = None,
+                   layer_major: Optional[bool] = None):
     if not top_at_1:
         p_lay, t_lay, vmr, col_dry = map(_flip_lay, (p_lay, t_lay, vmr, col_dry))
         p_lev = _flip_lay(p_lev)
@@ -162,11 +216,25 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
     interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("sw_tau", "ssa", "g", "toa_source")} \
         if output_optical else None
+    cellw, lm = _layouts(kd, cellw, layer_major,
+                         not output_bnd_fluxes and not output_optical)
+    if lm:
+        lm_in = tuple(map(gas_ops.layer_major,
+                          (interp, p_lay, t_lay, col_gas, col_dry)))
+        to_lm2 = lambda o: optics_ops.OpticalProps2str(
+            tau=gas_ops._cells(o.tau, "lm"), ssa=gas_ops._cells(o.ssa, "lm"),
+            g=gas_ops._cells(o.g, "lm"))
+        cld = to_lm2(cld) if with_clouds else cld
+        aer = to_lm2(aer) if with_aerosols else aer
 
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
-        tau_abs, tau_ray = gas_ops.tau_majmin_and_rayleigh(
-            kdc, interp, p_lay, t_lay, col_gas, col_dry)
+        if lm:
+            tau_abs, tau_ray = (a.reshape(nlay * ncol, g1 - g0) for a in
+                                gas_ops.tau_majmin_and_rayleigh(kdc, *lm_in))
+        else:
+            tau_abs, tau_ray = gas_ops.tau_majmin_and_rayleigh(
+                kdc, interp, p_lay, t_lay, col_gas, col_dry, cellw=cellw)
         tau, ssa, g = gas_ops.combine_abs_and_rayleigh(tau_abs, tau_ray)
         op = optics_ops.OpticalProps2str(tau=tau, ssa=ssa, g=g)
         if with_clouds:
@@ -183,6 +251,14 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
         alb_dir = flux_ops.expand_bands_to_gpt(sfc_alb_dir, kdc.gpt2band)
         alb_dif = flux_ops.expand_bands_to_gpt(sfc_alb_dif, kdc.gpt2band)
 
+        if lm:
+            up_bb, dn_bb, dir_bb = rte_sw.sw_solver_2stream_broadband_lm(
+                op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa,
+                ncol=ncol)
+            flux_up = flux_up + up_bb
+            flux_dn = flux_dn + dn_bb
+            flux_dir = flux_dir + dir_bb
+            continue
         if not output_bnd_fluxes:
             up_bb, dn_bb, dir_bb = rte_sw.sw_solver_2stream_broadband(
                 op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa)
@@ -285,12 +361,15 @@ class RadiationSolverLW(_SolverBase):
     def solve(self, gas_concs: GasConcs, p_lay, p_lev, t_lay, t_lev, t_sfc,
               emis_sfc, col_dry=None, lwp=None, iwp=None, rel=None, dei=None,
               gpt_chunk: Optional[int] = None, output_bnd_fluxes: bool = False,
-              n_gauss_angles: int = 1, output_optical: bool = False) -> dict:
+              n_gauss_angles: int = 1, output_optical: bool = False,
+              cellw: Optional[bool] = None,
+              layer_major: Optional[bool] = None) -> dict:
         """emis_sfc: (ncol, nbnd) surface emissivity per band.  Runs on the
         k-distribution's device.
 
         Cloud fields (lwp/iwp in g m-2, rel/dei in micron) enable the
-        cloudy-sky path when provided."""
+        cloudy-sky path when provided.  ``cellw`` / ``layer_major`` choose
+        the layout (module docstring; ``None``: from the environment)."""
         dtype = self.kdist.dtype
         self._validate(p_lay, p_lev, t_lay, t_lev, t_sfc, col_dry)
         top_at_1 = self._detect_top(p_lay)
@@ -312,7 +391,8 @@ class RadiationSolverLW(_SolverBase):
             top_at_1=top_at_1, gpt_chunk=gpt_chunk,
             output_bnd_fluxes=output_bnd_fluxes,
             n_gauss_angles=n_gauss_angles, with_clouds=with_clouds,
-            output_optical=output_optical)
+            output_optical=output_optical, cellw=cellw,
+            layer_major=layer_major)
 
 
 class RadiationSolverSW(_SolverBase):
@@ -324,9 +404,12 @@ class RadiationSolverSW(_SolverBase):
               lwp=None, iwp=None, rel=None, dei=None, rh=None, aermr=None,
               gpt_chunk: Optional[int] = None, output_bnd_fluxes: bool = False,
               delta_cloud: bool = False, delta_aerosol: bool = False,
-              output_optical: bool = False) -> dict:
+              output_optical: bool = False, cellw: Optional[bool] = None,
+              layer_major: Optional[bool] = None) -> dict:
         """sfc_alb_*: (ncol, nbnd); mu0: (ncol,); aermr: (ncol, nlay, 11).
-        Runs on the k-distribution's device."""
+        Runs on the k-distribution's device.  ``cellw`` / ``layer_major``
+        choose the layout (module docstring; ``None``: from the
+        environment)."""
         dtype = self.kdist.dtype
         self._validate(p_lay, p_lev, t_lay, col_dry=col_dry)
         top_at_1 = self._detect_top(p_lay)
@@ -356,4 +439,5 @@ class RadiationSolverSW(_SolverBase):
             output_bnd_fluxes=output_bnd_fluxes,
             with_clouds=with_clouds, with_aerosols=with_aerosols,
             delta_cloud=delta_cloud, delta_aerosol=delta_aerosol,
-            output_optical=output_optical)
+            output_optical=output_optical, cellw=cellw,
+            layer_major=layer_major)

@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("gas_optics_interp.cu", "lw_sweep.cu", "sw_2stream.cu")
+SOURCES = ("gas_optics_interp.cu", "interp_rows.cu", "lw_sweep.cu",
+           "sw_2stream.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,16 +40,27 @@ SIGNATURES = {
     "rrtmgp_gas_optics_interp_f32": (
         _P, _L, _L, _P, _L, _L, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    "rrtmgp_interp_rows_f32": (
+        _I, _P, _L, _L, _P, _I, _P, _P, _P, _P, _L, _L, _P, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
     "rrtmgp_lw_sweep_f32": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
         _P),
+    "rrtmgp_lw_sweep_lm_f32": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+        _F, _F, _P),
     "rrtmgp_sw_2stream_f32": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+        _P),
+    "rrtmgp_sw_2stream_lm_f32": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
         _P),
 }
 
 # Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"gas_optics_interp": 0, "lw_sweep": 0, "sw_2stream": 0}
+LAUNCHES = {"gas_optics_interp": 0, "interp_rows_multi": 0, "interp_rows": 0,
+            "lw_sweep": 0, "sw_2stream": 0, "lw_sweep_lm": 0,
+            "sw_2stream_lm": 0}
 
 _state = {"lib": None, "info": None}
 

@@ -10,6 +10,8 @@ Jacobian.
 :func:`lw_solver_noscat_broadband` returns g-point-summed fluxes: on the
 card each Gauss angle is one launch of the hand-written sweep kernel
 (``csrc/lw_sweep.cu``), which never materializes (ncol, nlev, ngpt).
+:func:`lw_solver_noscat_broadband_lm` does the same on layer-major
+(nlay*ncol, G) planes (cell (c, l) at row l*ncol + c).
 
 Canonical orientation: **top of atmosphere at layer index 0**.
 """
@@ -121,6 +123,42 @@ def lw_solver_noscat_broadband(tau, lay_src, lev_src, sfc_emis, sfc_src,
     for imu in range(n_gauss_angles):
         u, d, j = _kern.lw_sweep(
             tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac, inc_flux,
+            D=float(GAUSS_DS[n_gauss_angles - 1, imu]),
+            w=float(GAUSS_WTS[n_gauss_angles - 1, imu]))
+        fu, fd, fj = fu + u, fd + d, fj + j
+    return fu, fd, fj
+
+
+def _col_major(a, nrow: int, ncol: int):
+    """Layer-major (nrow*ncol, G) -> a (ncol, nrow, G) view."""
+    return a.reshape(nrow, ncol, -1).transpose(0, 1)
+
+
+def lw_sweep_lm_plain(tau_lm, lay_lm, lev_pieces, sfc_emis, sfc_src,
+                      sfc_src_jac, inc_flux, ncol: int, D: float, w: float):
+    """Plain twin of the layer-major LW sweep kernel: :func:`lw_sweep_plain`
+    on the planes viewed column-major (the level pieces concatenated)."""
+    nlay = tau_lm.shape[0] // ncol
+    lev = torch.cat(tuple(lev_pieces), dim=0)
+    return lw_sweep_plain(_col_major(tau_lm, nlay, ncol),
+                          _col_major(lay_lm, nlay, ncol),
+                          _col_major(lev, nlay + 1, ncol), sfc_emis, sfc_src,
+                          sfc_src_jac, inc_flux, D, w)
+
+
+def lw_solver_noscat_broadband_lm(tau_lm, lay_lm, lev_pieces, sfc_emis,
+                                  sfc_src, sfc_src_jac, inc_flux, *,
+                                  ncol: int, n_gauss_angles: int = 1):
+    """Broadband LW solve on layer-major planes: tau_lm/lay_lm
+    (nlay*ncol, G), ``lev_pieces`` = (lev0 (ncol, G), inner
+    ((nlay-1)*ncol, G), lev_last (ncol, G)) as :func:`planck_source_lm`
+    returns them, the rest (ncol, G).  One kernel launch per Gauss angle
+    on the card.  Returns up, dn, jac each (ncol, nlay+1)."""
+    fu = fd = fj = 0.0
+    for imu in range(n_gauss_angles):
+        u, d, j = _kern.lw_sweep_lm(
+            tau_lm, lay_lm, lev_pieces, sfc_emis, sfc_src, sfc_src_jac,
+            inc_flux, ncol=ncol,
             D=float(GAUSS_DS[n_gauss_angles - 1, imu]),
             w=float(GAUSS_WTS[n_gauss_angles - 1, imu]))
         fu, fd, fj = fu + u, fd + d, fj + j

@@ -9,6 +9,8 @@ albedo and source accumulation) and the diffuse down-sweep.
 :func:`sw_solver_2stream` returns per-g-point fluxes as plain tensor code.
 :func:`sw_solver_2stream_broadband` returns g-point-summed fluxes: on the
 card it is one launch of the hand-written kernel ``csrc/sw_2stream.cu``.
+:func:`sw_solver_2stream_broadband_lm` does the same on layer-major
+(nlay*ncol, G) planes (cell (c, l) at row l*ncol + c).
 
 Canonical orientation: top of atmosphere at layer index 0.
 """
@@ -128,3 +130,26 @@ def sw_solver_2stream_broadband(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
     sweeps and the spectral reduction fused, no (ncol, nlev, ngpt) planes)."""
     return _kern.sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                             inc_flux_dir, inc_flux_dif)
+
+
+def sw_2stream_lm_plain(tau_lm, ssa_lm, g_lm, mu0, sfc_alb_dir, sfc_alb_dif,
+                        inc_flux_dir, inc_flux_dif=None, *, ncol: int):
+    """Plain twin of the layer-major SW kernel: :func:`sw_2stream_plain` on
+    the planes viewed column-major."""
+    nlay = tau_lm.shape[0] // ncol
+    cm = lambda a: a.reshape(nlay, ncol, -1).transpose(0, 1)
+    return sw_2stream_plain(cm(tau_lm), cm(ssa_lm), cm(g_lm), mu0,
+                            sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+                            inc_flux_dif)
+
+
+def sw_solver_2stream_broadband_lm(tau_lm, ssa_lm, g_lm, mu0, sfc_alb_dir,
+                                   sfc_alb_dif, inc_flux_dir,
+                                   inc_flux_dif=None, *, ncol: int):
+    """Broadband SW solve on layer-major planes: tau/ssa/g (nlay*ncol, G),
+    mu0 (ncol,), albedos and incident fluxes (ncol, G).  One kernel launch
+    on the card.  Returns up, dn (diffuse + direct), dir each
+    (ncol, nlay+1)."""
+    return _kern.sw_2stream_lm(tau_lm, ssa_lm, g_lm, mu0, sfc_alb_dir,
+                               sfc_alb_dif, inc_flux_dir, inc_flux_dif,
+                               ncol=ncol)

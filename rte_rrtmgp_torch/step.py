@@ -64,11 +64,16 @@ def atmos_arrays(ncol: int, nlay: int, dtype=np.float32, seed: int = 0) -> dict:
     )
 
 
-def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None):
+def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=None,
+              layer_major=None):
     """The flagship forward step on the tables' device.  The returned
     ``step(p_lay, ..., dei)`` takes tensors (or arrays) in ``ARG_NAMES``
     order and returns {lw_flux_up, lw_flux_dn, lw_flux_net, sw_flux_up,
-    sw_flux_dn, sw_flux_dn_dir, sw_flux_net}, each (ncol, nlev)."""
+    sw_flux_dn, sw_flux_dn_dir, sw_flux_net}, each (ncol, nlev).
+
+    ``cellw`` / ``layer_major`` choose the layout, i.e. which kernels run
+    (``models/radiation.py``); ``None`` reads ``RTE_RRTMGP_PALLAS_CELLW``
+    (default on) / ``RTE_RRTMGP_LAYERMAJOR`` (default off) at each call."""
     device, dtype = kd_lw.device, kd_lw.dtype
 
     def step(p_lay, p_lev, t_lay, t_lev, t_sfc, vmr, col_dry, emis_sfc,
@@ -82,7 +87,8 @@ def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None):
             kd_lw, clut_lw, p_lay, p_lev, t_lay, t_lev, t_sfc, vmr, col_dry,
             emis_sfc, lwp, iwp, rel, dei,
             top_at_1=False, gpt_chunk=gpt_chunk, output_bnd_fluxes=False,
-            n_gauss_angles=1, with_clouds=True)
+            n_gauss_angles=1, with_clouds=True, cellw=cellw,
+            layer_major=layer_major)
         zeros = torch.zeros_like(lwp)
         sw = _solve_sw_impl(
             kd_sw, clut_sw, None, p_lay, p_lev, t_lay, vmr, col_dry,
@@ -90,7 +96,8 @@ def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None):
             zeros, torch.zeros(lwp.shape + (11,), dtype=dtype, device=device),
             top_at_1=False, gpt_chunk=gpt_chunk, output_bnd_fluxes=False,
             with_clouds=True, with_aerosols=False,
-            delta_cloud=True, delta_aerosol=False)
+            delta_cloud=True, delta_aerosol=False, cellw=cellw,
+            layer_major=layer_major)
         return {**lw, **sw}
 
     return step

@@ -14,6 +14,7 @@ import torch
 
 from rte_rrtmgp_torch.ops import kernels
 from rte_rrtmgp_torch.ops.kernels import gas_optics_interp as b1
+from rte_rrtmgp_torch.ops.kernels import interp_rows as b45
 from rte_rrtmgp_torch.ops.kernels import solvers as b23
 from rte_rrtmgp_torch.ops import gas_optics as go, rte_lw, rte_sw
 
@@ -66,8 +67,8 @@ def test_sw_2stream(cuda, G):
         _assert_close(a, b, name)
 
 
-@pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
-def test_gas_optics_interp(cuda, longwave):
+def _gas_case(cuda, longwave):
+    """k-distribution (gpt_per_band 4) and a 9 x 20 atmosphere on the card."""
     from rte_rrtmgp_torch.cases.profiles import make_atmosphere
     from rte_rrtmgp_torch.data import synthetic
     from rte_rrtmgp_torch.models.kdist import KDist
@@ -82,6 +83,12 @@ def test_gas_optics_interp(cuda, longwave):
     col_dry = go.get_col_dry(vmr[:, :, 0], t(atm["p_lev"]))
     col_gas = go.build_col_gas(vmr, col_dry)
     interp = go.interpolation(kd, play, tlay, col_gas)
+    return kd, interp, play, tlay, col_gas, col_dry
+
+
+@pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
+def test_gas_optics_interp(cuda, longwave):
+    kd, interp, play, tlay, col_gas, _ = _gas_case(cuda, longwave)
     for g0, g1 in ((0, 36), (36, kd.ngpt)):
         kdc = kd.slice_gpt(g0, g1)
         sc = go.minor_scaling(kdc, interp, play, tlay, col_gas)
@@ -91,6 +98,91 @@ def test_gas_optics_interp(cuda, longwave):
             _assert_close(a, b, f"{name} [{g0}, {g1})")
 
 
+@pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
+def test_interp_rows_multi(cuda, longwave):
+    """B4: kmajor + planck (LW) or kmajor + krayl (SW) over shared planes,
+    on a chunk view of the tables (strided rows)."""
+    kd, interp, *_ = _gas_case(cuda, longwave)
+    kdc = kd.slice_gpt(36, kd.ngpt)
+    rows, jes, fms, fp, cms = go._fused_inputs(kdc, interp, True)
+    second = (kdc.planck_rows, rows) if longwave else (
+        kdc.krayl_rows, go._ray_rows(kdc, interp))
+    args = ([kdc.kmajor_rows, second[0]], [rows, second[1]], jes, fms, fp,
+            [cms, None])
+    got = b45.interp_rows_multi(*args)
+    ref = go.interp_rows_plain(*args)
+    for name, a, b in zip(("tau", "second"), got, ref):
+        _assert_close(a, b, name)
+
+
+@pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
+def test_interp_rows_minor(cuda, longwave):
+    """B5 over the minor contributor axis (CT not a multiple of 32)."""
+    kd, interp, play, tlay, col_gas, _ = _gas_case(cuda, longwave)
+    tbl, rows, flav, _, _, _, CT = go._minor_prep(kd, interp, play, tlay,
+                                                  col_gas)
+    F = kd.nflav
+    plane = lambda x, c: x[:, :, c * F:(c + 1) * F].index_select(
+        2, flav).reshape(-1, CT)
+    jes = tuple(plane(interp.jeta0, i) for i in range(2))
+    fms = tuple(plane(interp.fminor, c) for c in range(4))
+    _assert_close(b45.interp_rows(tbl, rows, jes, fms),
+                  go.interp_rows_plain([tbl], [rows], jes, fms, None,
+                                       [None])[0], f"minor CT={CT}")
+
+
+def test_tau_major_on_card_launches_interp_rows(cuda):
+    """The single-quantity gas-optics functions dispatch by device: on CUDA
+    tensors tau_major launches the weight-plane kernel, and agrees with the
+    plain body."""
+    kd, interp, *_ = _gas_case(cuda, True)
+    kernels.reset_launch_counts()
+    tau = go.tau_major(kd, interp)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["interp_rows"] == 1
+    _assert_close(tau, go._interp3d_rows(kd, kd.kmajor_rows, interp, True),
+                  "tau_major")
+
+
+def _lm(a):
+    return a.transpose(0, 1).reshape(-1, a.shape[2]).contiguous()
+
+
+@pytest.mark.parametrize("G", [12, 96, 128])
+def test_lw_sweep_lm(cuda, G):
+    rng = np.random.default_rng(G + 2)
+    ncol, nlay = 17, 30
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    lev = rng.uniform(10, 120, (ncol, nlay + 1, G))
+    lev_lm = _lm(t(lev))
+    pieces = (lev_lm[:ncol], lev_lm[ncol:nlay * ncol], lev_lm[nlay * ncol:])
+    args = [_lm(t(rng.uniform(0, 3, (ncol, nlay, G)))),
+            _lm(t(0.5 * (lev[:, 1:] + lev[:, :-1]))), pieces,
+            t(rng.uniform(0.8, 1, (ncol, G))), t(rng.uniform(50, 150, (ncol, G))),
+            t(rng.uniform(0.5, 2, (ncol, G))), t(rng.uniform(0, 5, (ncol, G)))]
+    got = b23.lw_sweep_lm(*args, ncol=ncol, D=1.66, w=1.0)
+    ref = rte_lw.lw_sweep_lm_plain(*args, ncol, 1.66, 1.0)
+    for name, a, b in zip(("up", "dn", "jac"), got, ref):
+        _assert_close(a, b, name)
+
+
+@pytest.mark.parametrize("G", [12, 96, 128])
+def test_sw_2stream_lm(cuda, G):
+    rng = np.random.default_rng(G + 3)
+    ncol, nlay = 17, 30
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    args = [_lm(t(rng.uniform(0, 4, (ncol, nlay, G)))),
+            _lm(t(rng.uniform(0, 1, (ncol, nlay, G)))),
+            _lm(t(rng.uniform(0, 0.9, (ncol, nlay, G)))),
+            t(rng.uniform(0.1, 1, ncol)), t(rng.uniform(0, 0.5, (ncol, G))),
+            t(rng.uniform(0, 0.5, (ncol, G))), t(rng.uniform(0, 100, (ncol, G))),
+            t(rng.uniform(0, 5, (ncol, G)))]
+    got = b23.sw_2stream_lm(*args, ncol=ncol)
+    ref = rte_sw.sw_2stream_lm_plain(*args, ncol=ncol)
+    for name, a, b in zip(("up", "dn", "dir"), got, ref):
+        _assert_close(a, b, name)
+
+
 def test_wrappers_refuse_float64_on_card(cuda):
     x = torch.zeros((2, 3, 4), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
@@ -98,3 +190,15 @@ def test_wrappers_refuse_float64_on_card(cuda):
                                        device=cuda),
                      *[torch.zeros((2, 4), dtype=torch.float64, device=cuda)] * 4,
                      D=1.66, w=1.0)
+    x2 = torch.zeros((6, 4), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        b23.sw_2stream_lm(x2, x2, x2, torch.ones(2, dtype=torch.float64,
+                                                  device=cuda),
+                          *[torch.zeros((2, 4), dtype=torch.float64,
+                                        device=cuda)] * 3, ncol=2)
+    je = torch.zeros((6, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        b45.interp_rows(torch.zeros((3, 5, 4), dtype=torch.float64,
+                                    device=cuda),
+                        torch.zeros((6, 2), dtype=torch.int32, device=cuda),
+                        (je, je), (x2,) * 4)

@@ -1,11 +1,11 @@
 """The port's weight-plane gas optics vs the JAX package, float64 on the CPU.
 
 The JAX package runs its XLA path (``use_pallas()`` is False off TPU); the
-port runs its plane builders and, for CPU tensors, the plain twin of the
-weight-plane kernel (``interp_rows_plain``).  Inputs are made from a seed
-with NumPy and handed to both.
+port makes the same weight planes and runs, for CPU tensors, the plain twin
+of the weight-plane kernel (``interp_rows_plain``).  Inputs are made from a
+seed with NumPy and handed to both.
 
-* The plane builders equal JAX's ``_fused_inputs`` / ``_kernel_resolves``
+* The weight planes equal JAX's ``_fused_inputs`` / ``_kernel_resolves``
   and ``_minor_prep`` exactly (JAX's one-hot matmuls are exact in f64).
 * The plane paths of the major, Planck, Rayleigh and minor interpolations,
   the top-level ``gas_optics_lw`` / ``gas_optics_sw`` and

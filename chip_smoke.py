@@ -25,7 +25,12 @@ Phases (any failure ends the run with a nonzero exit):
    is recorded with its real inputs; each is replayed through its kernel
    and its plain PyTorch twin on the card and held to ``REL_TOL`` of the
    output's largest value, then both are timed with CUDA events beside the
-   computed bound.
+   computed bound (inputs read once and outputs written once; a kernel's
+   scratch is never counted).  Each line names the launch geometry the
+   wrapper chose (tile, branch) and the share of the bound reached.  The SW
+   wrappers' device allocation beyond their outputs is measured at the
+   flagship shape (no scratch at 72 layers: the working set stays in
+   shared memory).
 4. Full steps through ``step.make_step``, one layout at a time: launch
    counts of one step (the counts set to 0 just before, read just after,
    held to the exact counts of that layout), ms/step and col*gpt/s over a
@@ -279,7 +284,10 @@ def main(argv) -> int:
         plain = lambda: go.majmin_plain(kd, interp, sc, rayleigh)
         label = (f"{'SW' if rayleigh else 'LW'} {C}x{L} G={G} "
                  f"minor={len(specs)}")
-        return label, kern, plain, in_b + out_b, ops
+        nent = k_interp._minor_entries(tuple(specs), G, dev)[2]
+        geo = k_interp.interp_geometry(C, L, G, kd.nflav, len(specs), nent,
+                                       k_interp.TILE_CELLS, k_interp.THREADS)
+        return label, kern, plain, in_b + out_b, ops, geo.describe()
 
     def rows_ops(rows_list, cms_list):
         # per output element: 4 corners 2 x (two pressure blends, the eta
@@ -297,7 +305,7 @@ def main(argv) -> int:
         kern = lambda: k_rows.interp_rows_multi(*a)
         plain = lambda: go.interp_rows_plain(*a)
         return (f"N={N} G={G} ops={len(tables)}", kern, plain, b,
-                N * G * rows_ops(rows_list, cms_list))
+                N * G * rows_ops(rows_list, cms_list), "thread per (cell, g)")
 
     def rows_call(a, kw):
         table, rows, jes, fms = a
@@ -309,7 +317,7 @@ def main(argv) -> int:
         plain = lambda: tuple(go.interp_rows_plain([table], [rows], jes, fms,
                                                    fp, [cms]))
         return (f"N={N} G={G} corners={rows.shape[1]}", kern, plain, b,
-                N * G * rows_ops([rows], [cms]))
+                N * G * rows_ops([rows], [cms]), "thread per (cell, g)")
 
     def lw_call(a, kw):
         tau = a[0]
@@ -317,7 +325,7 @@ def main(argv) -> int:
         kern = lambda: k_solvers.lw_sweep(*a, **kw)
         plain = lambda: rte_lw.lw_sweep_plain(*a, kw["D"], kw["w"])
         return (f"G={G}", kern, plain, nbytes(*a) + 3 * C * (L + 1) * 4,
-                25 * C * L * G)
+                25 * C * L * G, "block per column, thread per g")
 
     def lw_lm_call(a, kw):
         tau, lev = a[0], a[2]
@@ -327,7 +335,8 @@ def main(argv) -> int:
         plain = lambda: rte_lw.lw_sweep_lm_plain(*a, C, kw["D"], kw["w"])
         b = (nbytes(*[x for x in a if torch.is_tensor(x)], *lev)
              + 3 * (NL + C) * 4)
-        return f"G={G}", kern, plain, b, 25 * NL * G
+        return (f"G={G}", kern, plain, b, 25 * NL * G,
+                "block per column, thread per g")
 
     def sw_call(name, a, kw):
         tau = a[0]
@@ -336,9 +345,11 @@ def main(argv) -> int:
         nlev = tau.numel() // (C * G) + 1
         kern = lambda: getattr(k_solvers, name)(*a, **kw)
         plain = lambda: wrappers[name][1](*a, **kw)
+        geo = k_solvers.sw_geometry(C, nlev - 1, G, k_solvers.SW_TILE,
+                                    k_solvers.SW_THREADS, k_solvers.SW_SLOTS)
         return (f"G={G}", kern, plain,
                 nbytes(*[x for x in a if torch.is_tensor(x)]) + 3 * C * nlev * 4,
-                80 * tau.numel())
+                80 * tau.numel(), geo.describe())
 
     makers = {"gas_optics_interp": interp_call,
               "interp_rows_multi": rows_multi_call, "interp_rows": rows_call,
@@ -352,7 +363,7 @@ def main(argv) -> int:
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, b_bytes=0.0,
                    b_ops=0.0)
         for a, kw in recs:
-            label, kern, plain, b_bytes, ops = makers[name](a, kw)
+            label, kern, plain, b_bytes, ops, geom = makers[name](a, kw)
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             errs = []
@@ -374,7 +385,8 @@ def main(argv) -> int:
             print(f"[kernel] {tag} {name} {label}: max abs err {max(errs):.3e} "
                   f"(tol {REL_TOL:g} x output max) ms {ms:.4f} plain_ms "
                   f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}: "
-                  f"{b_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop) library_ms null")
+                  f"{b_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop) share of "
+                  f"bound {b_ms / ms:.3f} library_ms null; {geom}")
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["bound_ms"] += b_ms
@@ -383,6 +395,24 @@ def main(argv) -> int:
             tot["err"] = max(tot["err"], max(errs))
         return tot
 
+    def sw_scratch(name, a, kw):
+        """Device bytes one SW launch allocates beyond its outputs (up, dn,
+        dir and the returned dn + dir), measured, and the wrapper's own
+        count."""
+        C = a[3].shape[0]
+        G = a[0].shape[-1]
+        nlev = a[0].numel() // (C * G) + 1
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = getattr(k_solvers, name)(*a, **kw)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - 4 * C * nlev * 4
+        del out
+        geo = k_solvers.sw_geometry(C, nlev - 1, G, k_solvers.SW_TILE,
+                                    k_solvers.SW_THREADS, k_solvers.SW_SLOTS)
+        return extra, 4 * geo.scratch_floats, C, nlev - 1, G
+
     per_layout = {}
     for layout, run_step in steps.items():
         calls = record(lambda: run_step(*args))
@@ -390,6 +420,14 @@ def main(argv) -> int:
         if got != expected[layout]:
             fail(f"{layout}: launches recorded in one step {got}, expected "
                  f"{expected[layout]}")
+        for name in ("sw_2stream", "sw_2stream_lm"):
+            if calls[name]:
+                extra, helper, C, L, G = sw_scratch(name, *calls[name][0])
+                print(f"[sw] {layout} {name} device scratch at {C}x{L} G={G}: "
+                      f"{helper} B by the wrapper's geometry, {extra} B "
+                      "allocated beyond the outputs (measured)")
+                if L <= 442 and (helper or extra > 1 << 20):
+                    fail(f"{name}: device scratch at {L} layers")
         per_layout[layout] = {name: replay(name, recs, layout)
                               for name, recs in calls.items() if recs}
         del calls

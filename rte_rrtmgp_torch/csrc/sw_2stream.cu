@@ -19,24 +19,109 @@
 //
 // What bounds it on the H100: bytes.  tau, ssa and g (three plane-sized
 // inputs, 75.5 MB each at 2048x72x128) are read once; the outputs are
-// (ncol, nlev).  This first version also stages rdif, tdif and the two
-// direct-beam sources per layer and albedo and source per level in a
-// wrapper-allocated scratch (six planes written once and read once), since
-// six nlay-deep arrays per thread do not fit in registers.
+// (ncol, nlev).  The working set of a (column, g) pair, nlay-deep arrays
+// that the two sweeps walk in opposite directions, stays in shared memory,
+// as the TPU kept it in VMEM: nothing of size (cell, g) goes through
+// device memory.
 //
-// Design: one block per column, one thread per g-point (whole warps;
-// threads past G are masked and add zeros).  The scratch planes take the
-// operands' layout, [col][layer][g] or [layer][col][g]; g is contiguous in
-// both, so a warp's accesses are coalesced either way.  Level sums go
-// through warp shuffles into shared memory (reduce.cuh).
+// Design.  A block owns one column and one tile of GT g-points (GT = 32,
+// 64 or 128, chosen by the wrapper); the tiles of one column form a thread
+// block cluster, and the cluster's rank-0 block sums the tiles' level
+// partials through distributed shared memory, in rank order (no atomics,
+// the same result on every run).  Shared memory holds four slots of
+// (nlay+1) x GT floats, each reused once its value is dead:
+//   0. cp.async brings tau, ssa and g into slots 0-2 (16-byte copies where
+//      the planes allow, 4-byte otherwise), with no registers in flight;
+//   1. serial over layers, one thread per g: the direct beam, a running
+//      product of exp(-tau/mu0), into slot 3 (the incident beam of each
+//      layer and the surface beam);
+//   2. layer-parallel, all threads: the level sums of the direct beam,
+//      then the coefficients of every (layer, g) (t_noscat recomputed, as
+//      the TPU's `_sw_coeff_adding_kernel` does), slots 0-3 := rdif, tdif,
+//      r_dir*fdir, t_dir*fdir;
+//   3. serial up-sweep from the surface: albedo and source, leaving per
+//      layer the four numbers the down-sweep needs (the TPU's form):
+//      c1 = tdif*denom, c0 = (rdif*src_below + sdn)*denom, a1 = alb_below,
+//      s1 = src_below;
+//   4. serial down-sweep: d = c1*d + c0, u = d*a1 + s1, written back over
+//      a1/s1 (level 0 in the spare row nlay);
+//   5. layer-parallel level sums of u and d, then the cluster's sum.
+// Compiled with RRTMGP_SW_TWIN_ORDER=1 the sweeps keep the twin's order of
+// operations instead (rdif, tdif, sdn, src_below and alb_below kept, denom
+// recomputed in the down-sweep; five slots): a measured variant, not the
+// library's build.
+//
+// The global-scratch branch.  Shared memory holds NSLOT*(nlay+1)*GT +
+// 3*(nlay+1) floats a block.  Where that exceeds the 227 KB a block may use
+// even at the narrowest tile the cluster limit allows (GT = 32 for G <= 256:
+// nlay >= 443), the wrapper passes a device scratch of that size per block
+// and the same kernel keeps its slots there (plain loads instead of
+// cp.async).  Shapes choose the branch; nothing else differs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "reduce.cuh"
 
+#ifndef RRTMGP_SW_TWIN_ORDER
+#define RRTMGP_SW_TWIN_ORDER 0
+#endif
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-template <bool LM>
+constexpr bool kTwinOrder = RRTMGP_SW_TWIN_ORDER != 0;
+constexpr int NSLOT = kTwinOrder ? 5 : 4;
+
+// Floats of a block's working set: NSLOT slots of (nlay+1) x gt, then the
+// level partials of up, dn and dir.
+__host__ __device__ inline long long block_floats(int nlay, int gt)
+{
+    return (long long)NSLOT * (nlay + 1) * gt + 3LL * (nlay + 1);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src)
+{
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src)
+{
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+                 ::: "memory");
+}
+
+// Sums slot rows over the tile's active g-points: part[lev] = sum_j
+// s[row(lev)*GT + j], one warp per level, lanes over j then shuffles.
+template <int GT>
+__device__ __forceinline__ void level_sums(const float* s, int nlay, int gw,
+                                           bool shifted, float* part)
+{
+    const int lane = threadIdx.x & 31;
+    const int nwarp = blockDim.x >> 5;
+    for (int lev = threadIdx.x >> 5; lev <= nlay; lev += nwarp) {
+        // Down-sweep rows: level 0 in the spare row nlay, level l+1 in row l.
+        const int row = shifted ? (lev == 0 ? nlay : lev - 1) : lev;
+        float v = 0.0f;
+        for (int j = lane; j < gw; j += 32)
+            v += s[row * GT + j];
+        v = rrtmgp::warp_sum(v);
+        if (lane == 0) part[lev] = v;
+    }
+}
+
+template <bool LM, int GT>
 __global__ void sw_2stream_kernel(
     const float* __restrict__ tau, const float* __restrict__ ssa,
     const float* __restrict__ gasy, const float* __restrict__ mu0,
@@ -46,167 +131,306 @@ __global__ void sw_2stream_kernel(
     float* __restrict__ scratch, int ncol, int nlay, int G, float kmin,
     float tmin)
 {
-    extern __shared__ float part[];
-    const long long c = blockIdx.x;
-    const int g = threadIdx.x;
-    const bool active = g < G;
+    extern __shared__ __align__(16) float smem[];
+    // The column's tiles are one 1-D cluster of consecutive blocks: the
+    // tile index is the block's rank in it.
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ntiles = (G + GT - 1) / GT;
+    const long long c = blockIdx.x / ntiles;
+    const int rank = (int)(blockIdx.x - c * ntiles);
+    const int g0 = rank * GT;
+    const int gw = min(GT, G - g0);
+    const int tid = threadIdx.x;
     const int nlev = nlay + 1;
-    const int nwarp = blockDim.x >> 5;
+    const bool in_smem = scratch == nullptr;
 
-    // Row l of the column: offset + l*ls in every plane.  Column-major
-    // (c*nrow + l)*G: offset c*nrow*G, stride G; layer-major (l*ncol + c)*G:
-    // offset c*G, stride ncol*G.
-    const long long lay_plane = (long long)ncol * nlay * G;
-    const long long lev_plane = (long long)ncol * nlev * G;
+    float* const work = in_smem
+        ? smem : scratch + (long long)blockIdx.x * block_floats(nlay, GT);
+    const int slot = nlev * GT;
+    float* const S0 = work;
+    float* const S1 = work + slot;
+    float* const S2 = work + 2 * slot;
+    float* const S3 = work + 3 * slot;
+    [[maybe_unused]] float* const S4 = work + 4 * slot;   // twin order
+    float* const part = work + NSLOT * slot;   // [up, dn, dir][nlev]
+
+    // Row l of this tile in every plane: base + l*ls.  Column-major
+    // (c*nlay + l)*G + g0; layer-major (l*ncol + c)*G + g0.
     const long long ls = LM ? (long long)ncol * G : G;
-    const long long lay_off = (LM ? c : c * nlay) * G + g;
-    const long long lev_off = (LM ? c : c * nlev) * G + g;
-    float* rdif_s = scratch + lay_off;
-    float* tdif_s = scratch + lay_plane + lay_off;
-    float* sup_s = scratch + 2 * lay_plane + lay_off;
-    float* sdn_s = scratch + 3 * lay_plane + lay_off;
-    float* alb_s = scratch + 4 * lay_plane + lev_off;
-    float* src_s = scratch + 4 * lay_plane + lev_plane + lev_off;
+    const long long base = (LM ? c : c * nlay) * G + g0;
+    const long long cg0 = c * G + g0;
 
+    // --- 0. tau, ssa, g -> slots 0-2 ---
+    if (in_smem) {
+        const bool vec = (G & 3) == 0
+            && (((uintptr_t)tau | (uintptr_t)ssa | (uintptr_t)gasy) & 15) == 0;
+        if (vec) {
+            constexpr int Q = GT / 4;
+            for (int e = tid; e < nlay * Q; e += blockDim.x) {
+                const int l = e / Q;
+                const int j = (e - l * Q) * 4;
+                if (j >= gw) continue;
+                const long long o = base + (long long)l * ls + j;
+                cp_async16(S0 + l * GT + j, tau + o);
+                cp_async16(S1 + l * GT + j, ssa + o);
+                cp_async16(S2 + l * GT + j, gasy + o);
+            }
+        } else {
+            for (int e = tid; e < nlay * GT; e += blockDim.x) {
+                const int l = e / GT;
+                const int j = e - l * GT;
+                if (j >= gw) continue;
+                const long long o = base + (long long)l * ls + j;
+                cp_async4(S0 + e, tau + o);
+                cp_async4(S1 + e, ssa + o);
+                cp_async4(S2 + e, gasy + o);
+            }
+        }
+        cp_async_wait_all();
+    } else {
+        for (int e = tid; e < nlay * GT; e += blockDim.x) {
+            const int l = e / GT;
+            const int j = e - l * GT;
+            if (j >= gw) continue;
+            const long long o = base + (long long)l * ls + j;
+            S0[e] = tau[o];
+            S1[e] = ssa[o];
+            S2[e] = gasy[o];
+        }
+    }
+    __syncthreads();
+
+    // --- 1. direct beam, top down: slot 3 row l = beam incident on layer
+    // l, row nlay = the surface beam ---
     const float m = mu0[c];
-    float fdir = active ? inc_dir[c * G + g] * m : 0.0f;
-    rrtmgp::level_partial(part, 2, nwarp, nlev, 0, fdir);
-
-    // --- two-stream coefficients + direct-beam sources, top down ---
-    for (int l = 0; l < nlay; ++l) {
-        if (active) {
-            const long long o = (long long)l * ls;
-            const float t = tau[lay_off + o];
-            const float w = ssa[lay_off + o];
-            const float a = gasy[lay_off + o];
-            const float gamma1 = (8.0f - w * (5.0f + 3.0f * a)) * 0.25f;
-            const float gamma2 = 3.0f * (w * (1.0f - a)) * 0.25f;
-            const float gamma3 = (2.0f - 3.0f * m * a) * 0.25f;
-            const float gamma4 = 1.0f - gamma3;
-            const float alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
-            const float alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
-
-            const float k = sqrtf(fmaxf((gamma1 - gamma2) * (gamma1 + gamma2),
-                                        kmin));
-            const float exp_mkt = expf(-t * k);
-            const float exp_m2kt = exp_mkt * exp_mkt;
-            const float rt_term = 1.0f / (k * (1.0f + exp_m2kt)
-                                          + gamma1 * (1.0f - exp_m2kt));
-            const float rdif = rt_term * gamma2 * (1.0f - exp_m2kt);
-            const float tdif = rt_term * 2.0f * k * exp_mkt;
-            const float t_noscat = expf(-t / m);
-
-            const float k_mu = k * m;
-            const float k_g3 = k * gamma3;
-            const float k_g4 = k * gamma4;
-            const float one_m = 1.0f - k_mu * k_mu;
-            const float fact = (fabsf(one_m) > tmin) ? one_m : tmin;
-            const float rt2 = w * rt_term / fact;
-            float r_dir = rt2 * ((1.0f - k_mu) * (alpha2 + k_g3)
-                                 - (1.0f + k_mu) * (alpha2 - k_g3) * exp_m2kt
-                                 - 2.0f * (k_g3 - alpha2 * k_mu) * exp_mkt
-                                       * t_noscat);
-            float t_dir = -rt2 * ((1.0f + k_mu) * (alpha1 + k_g4) * t_noscat
-                                  - (1.0f - k_mu) * (alpha1 - k_g4) * exp_m2kt
-                                        * t_noscat
-                                  - 2.0f * (k_g4 + alpha1 * k_mu) * exp_mkt);
-            // Ukkonen clamp (energy conservation in single precision).
-            r_dir = fmaxf(fminf(r_dir, 1.0f - t_noscat), tmin);
-            t_dir = fmaxf(fminf(t_dir, 1.0f - t_noscat - r_dir), tmin);
-
-            rdif_s[o] = rdif;
-            tdif_s[o] = tdif;
-            sup_s[o] = r_dir * fdir;
-            sdn_s[o] = t_dir * fdir;
-            fdir = t_noscat * fdir;
+    if (tid < gw) {
+        float fdir = inc_dir[cg0 + tid] * m;
+        S3[tid] = fdir;
+        #pragma unroll 4
+        for (int l = 0; l < nlay; ++l) {
+            fdir = expf(-S0[l * GT + tid] / m) * fdir;
+            S3[(l + 1) * GT + tid] = fdir;
         }
-        rrtmgp::level_partial(part, 2, nwarp, nlev, l + 1, fdir);
     }
+    __syncthreads();
 
-    // --- adding: albedo/source up-sweep from the surface ---
-    if (active) {
-        float alb = alb_dif[c * G + g];
-        float src = fdir * alb_dir[c * G + g];
-        alb_s[(long long)nlay * ls] = alb;
-        src_s[(long long)nlay * ls] = src;
+    // --- 2. level sums of the direct beam, then the coefficients ---
+    level_sums<GT>(S3, nlay, gw, false, part + 2 * nlev);
+    __syncthreads();
+    for (int e = tid; e < nlay * GT; e += blockDim.x) {
+        const int j = e % GT;
+        if (j >= gw) continue;
+        const float t = S0[e];
+        const float w = S1[e];
+        const float a = S2[e];
+        const float fdir = S3[e];
+        const float gamma1 = (8.0f - w * (5.0f + 3.0f * a)) * 0.25f;
+        const float gamma2 = 3.0f * (w * (1.0f - a)) * 0.25f;
+        const float gamma3 = (2.0f - 3.0f * m * a) * 0.25f;
+        const float gamma4 = 1.0f - gamma3;
+        const float alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
+        const float alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
+
+        const float k = sqrtf(fmaxf((gamma1 - gamma2) * (gamma1 + gamma2),
+                                    kmin));
+        const float exp_mkt = expf(-t * k);
+        const float exp_m2kt = exp_mkt * exp_mkt;
+        const float rt_term = 1.0f / (k * (1.0f + exp_m2kt)
+                                      + gamma1 * (1.0f - exp_m2kt));
+        const float rdif = rt_term * gamma2 * (1.0f - exp_m2kt);
+        const float tdif = rt_term * 2.0f * k * exp_mkt;
+        const float t_noscat = expf(-t / m);
+
+        const float k_mu = k * m;
+        const float k_g3 = k * gamma3;
+        const float k_g4 = k * gamma4;
+        const float one_m = 1.0f - k_mu * k_mu;
+        const float fact = (fabsf(one_m) > tmin) ? one_m : tmin;
+        const float rt2 = w * rt_term / fact;
+        float r_dir = rt2 * ((1.0f - k_mu) * (alpha2 + k_g3)
+                             - (1.0f + k_mu) * (alpha2 - k_g3) * exp_m2kt
+                             - 2.0f * (k_g3 - alpha2 * k_mu) * exp_mkt
+                                   * t_noscat);
+        float t_dir = -rt2 * ((1.0f + k_mu) * (alpha1 + k_g4) * t_noscat
+                              - (1.0f - k_mu) * (alpha1 - k_g4) * exp_m2kt
+                                    * t_noscat
+                              - 2.0f * (k_g4 + alpha1 * k_mu) * exp_mkt);
+        // Ukkonen clamp (energy conservation in single precision).
+        r_dir = fmaxf(fminf(r_dir, 1.0f - t_noscat), tmin);
+        t_dir = fmaxf(fminf(t_dir, 1.0f - t_noscat - r_dir), tmin);
+
+        S0[e] = rdif;
+        S1[e] = tdif;
+        S2[e] = r_dir * fdir;
+        S3[e] = t_dir * fdir;
+    }
+    __syncthreads();
+
+    // --- 3. + 4. the adding sweeps, one thread per g (its own column of
+    // the slots: no barrier between them) ---
+    if (tid < gw) {
+        const int j = tid;
+        float alb = alb_dif[cg0 + j];
+        float src = S3[nlay * GT + j] * alb_dir[cg0 + j];
+        #pragma unroll 4
         for (int l = nlay - 1; l >= 0; --l) {
-            const long long o = (long long)l * ls;
-            const float rdif = rdif_s[o];
-            const float tdif = tdif_s[o];
+            const int e = l * GT + j;
+            const float rdif = S0[e];
+            const float tdif = S1[e];
+            const float sup = S2[e];
+            const float sdn = S3[e];
             const float denom = 1.0f / (1.0f - rdif * alb);
-            src = sup_s[o] + tdif * denom * (src + alb * sdn_s[o]);
+            if constexpr (kTwinOrder) {
+                S2[e] = src;
+                S4[e] = alb;
+            } else {
+                S0[e] = tdif * denom;
+                S1[e] = (rdif * src + sdn) * denom;
+                S2[e] = alb;
+                S3[e] = src;
+            }
+            src = sup + tdif * denom * (src + alb * sdn);
             alb = rdif + tdif * tdif * alb * denom;
-            alb_s[o] = alb;
-            src_s[o] = src;
+        }
+
+        float d = inc_dif ? inc_dif[cg0 + j] : 0.0f;
+        S2[nlay * GT + j] = d * alb + src;
+        S3[nlay * GT + j] = d;
+        #pragma unroll 4
+        for (int l = 0; l < nlay; ++l) {
+            const int e = l * GT + j;
+            float u;
+            if constexpr (kTwinOrder) {
+                const float rdif = S0[e];
+                const float alb1 = S4[e];
+                const float src1 = S2[e];
+                const float denom = 1.0f / (1.0f - rdif * alb1);
+                d = (S1[e] * d + rdif * src1 + S3[e]) * denom;
+                u = d * alb1 + src1;
+            } else {
+                d = S0[e] * d + S1[e];
+                u = d * S2[e] + S3[e];
+            }
+            S2[e] = u;
+            S3[e] = d;
         }
     }
+    __syncthreads();
 
-    // --- diffuse down-sweep ---
-    float d = 0.0f;
-    float u = 0.0f;
-    if (active) {
-        d = inc_dif ? inc_dif[c * G + g] : 0.0f;
-        u = d * alb_s[0] + src_s[0];
-    }
-    rrtmgp::level_partial(part, 0, nwarp, nlev, 0, u);
-    rrtmgp::level_partial(part, 1, nwarp, nlev, 0, d);
-    for (int l = 0; l < nlay; ++l) {
-        if (active) {
-            const long long o = (long long)l * ls;
-            const float rdif = rdif_s[o];
-            const float alb1 = alb_s[o + ls];
-            const float src1 = src_s[o + ls];
-            const float denom = 1.0f / (1.0f - rdif * alb1);
-            d = (tdif_s[o] * d + rdif * src1 + sdn_s[o]) * denom;
-            u = d * alb1 + src1;
+    // --- 5. level sums of up and dn, then the cluster's sum ---
+    level_sums<GT>(S2, nlay, gw, true, part);
+    level_sums<GT>(S3, nlay, gw, true, part + nlev);
+    if (!in_smem) __threadfence();
+    cluster.sync();
+    if (rank == 0) {
+        float* const out[3] = {up, dn, dir};
+        const long long block0 = blockIdx.x;
+        for (int i = tid; i < 3 * nlev; i += blockDim.x) {
+            float s = 0.0f;
+            for (int r = 0; r < ntiles; ++r) {
+                const float* p = in_smem
+                    ? cluster.map_shared_rank(part, r)
+                    : scratch + (block0 + r) * block_floats(nlay, GT)
+                          + NSLOT * (long long)slot;
+                s += p[i];
+            }
+            const int q = i / nlev;
+            out[q][c * nlev + (i - q * nlev)] = s;
         }
-        rrtmgp::level_partial(part, 0, nwarp, nlev, l + 1, u);
-        rrtmgp::level_partial(part, 1, nwarp, nlev, l + 1, d);
     }
+    // Peers keep their shared memory until rank 0 has read it.
+    cluster.sync();
+}
 
-    float* const out[3] = {up, dn, dir};
-    rrtmgp::write_levels(part, 3, nwarp, nlev, c, out);
+template <bool LM, int GT>
+int launch_gt(const float* tau, const float* ssa, const float* g,
+              const float* mu0, const float* alb_dir, const float* alb_dif,
+              const float* inc_dir, const float* inc_dif, float* up,
+              float* dn, float* dir, float* scratch, int ncol, int nlay,
+              int G, int threads, float kmin, float tmin, void* stream)
+{
+    const int ntiles = (G + GT - 1) / GT;
+    if (ntiles > 8 || threads < 32 || threads % 32 || threads > 1024)
+        return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = scratch
+        ? 0 : sizeof(float) * (size_t)block_floats(nlay, GT);
+    auto kern = sw_2stream_kernel<LM, GT>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (ncol <= 0) return (int)cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((long long)ncol * ntiles));
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)ntiles;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, kern, tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up,
+        dn, dir, scratch, ncol, nlay, G, kmin, tmin);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 template <bool LM>
 int launch(const float* tau, const float* ssa, const float* g,
            const float* mu0, const float* alb_dir, const float* alb_dif,
            const float* inc_dir, const float* inc_dif, float* up, float* dn,
-           float* dir, float* scratch, int ncol, int nlay, int G, float kmin,
-           float tmin, void* stream)
+           float* dir, float* scratch, int ncol, int nlay, int G, int gt,
+           int threads, float kmin, float tmin, void* stream)
 {
-    size_t smem = 0;
-    cudaError_t err = rrtmgp::partial_smem(sw_2stream_kernel<LM>, 3, G,
-                                           nlay + 1, &smem);
-    if (err != cudaSuccess) return (int)err;
-    if (ncol > 0)
-        sw_2stream_kernel<LM><<<ncol, rrtmgp::block_threads(G), smem,
-                                (cudaStream_t)stream>>>(
-            tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn,
-            dir, scratch, ncol, nlay, G, kmin, tmin);
-    return (int)cudaGetLastError();
+    switch (gt) {
+    case 32:
+        return launch_gt<LM, 32>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
+                                 inc_dif, up, dn, dir, scratch, ncol, nlay, G,
+                                 threads, kmin, tmin, stream);
+    case 64:
+        return launch_gt<LM, 64>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
+                                 inc_dif, up, dn, dir, scratch, ncol, nlay, G,
+                                 threads, kmin, tmin, stream);
+    case 128:
+        return launch_gt<LM, 128>(tau, ssa, g, mu0, alb_dir, alb_dif,
+                                  inc_dir, inc_dif, up, dn, dir, scratch,
+                                  ncol, nlay, G, threads, kmin, tmin, stream);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
+// gt: g-points a block (32, 64 or 128; at most 8 tiles a column); threads:
+// threads a block (a multiple of 32, at least gt); scratch: null, or
+// ncol*ceil(G/gt) blocks of NSLOT*(nlay+1)*gt + 3*(nlay+1) floats for the
+// global-scratch branch.
 extern "C" int rrtmgp_sw_2stream_f32(
     const float* tau, const float* ssa, const float* g, const float* mu0,
     const float* alb_dir, const float* alb_dif, const float* inc_dir,
     const float* inc_dif, float* up, float* dn, float* dir, float* scratch,
-    int ncol, int nlay, int G, float kmin, float tmin, void* stream)
+    int ncol, int nlay, int G, int gt, int threads, float kmin, float tmin,
+    void* stream)
 {
     return launch<false>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
-                         inc_dif, up, dn, dir, scratch, ncol, nlay, G, kmin,
-                         tmin, stream);
+                         inc_dif, up, dn, dir, scratch, ncol, nlay, G, gt,
+                         threads, kmin, tmin, stream);
 }
 
 extern "C" int rrtmgp_sw_2stream_lm_f32(
     const float* tau, const float* ssa, const float* g, const float* mu0,
     const float* alb_dir, const float* alb_dif, const float* inc_dir,
     const float* inc_dif, float* up, float* dn, float* dir, float* scratch,
-    int ncol, int nlay, int G, float kmin, float tmin, void* stream)
+    int ncol, int nlay, int G, int gt, int threads, float kmin, float tmin,
+    void* stream)
 {
     return launch<true>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
-                        inc_dif, up, dn, dir, scratch, ncol, nlay, G, kmin,
-                        tmin, stream);
+                        inc_dif, up, dn, dir, scratch, ncol, nlay, G, gt,
+                        threads, kmin, tmin, stream);
 }

@@ -30,6 +30,9 @@ SOURCES = ("gas_optics_interp.cu", "interp_rows.cu", "lw_sweep.cu",
            "sw_2stream.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Shared memory a block may use on the H100 (and H200): 227 KB, opted into
+# above 48 KB with cudaFuncAttributeMaxDynamicSharedMemorySize.
+SMEM_PER_BLOCK = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rrtmgp_gas_optics_interp_f32": (
         _P, _L, _L, _P, _L, _L, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+        _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _P),
     "rrtmgp_interp_rows_f32": (
         _I, _P, _L, _L, _P, _I, _P, _P, _P, _P, _L, _L, _P, _I, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
@@ -50,11 +54,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
         _F, _F, _P),
     "rrtmgp_sw_2stream_f32": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-        _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _F, _F, _P),
     "rrtmgp_sw_2stream_lm_f32": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-        _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _F, _F, _P),
 }
 
 # Launches of each kernel, counted by its wrapper where it launches.
@@ -81,37 +85,36 @@ def _nvcc() -> str:
     return path
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(" ".join(sources).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
-    """Compile the kernels if this source hash has no library yet.  Returns
-    {"path", "seconds", "log", "cached"}; ``log`` holds nvcc's ``-Xptxas -v``
-    report (registers, shared memory and spills of every kernel)."""
-    if _state["info"] is not None:
-        return _state["info"]
-    out_dir = BUILD_ROOT / _source_hash()
+def compile_library(sources=SOURCES, flags=NVCC_FLAGS) -> dict:
+    """Compile ``sources`` of ``csrc/`` with ``flags`` into one shared
+    library under ``build/torch_kernels/<hash>/``, unless that hash already
+    has one.  Returns {"path", "seconds", "log", "cached"}; ``log`` holds
+    nvcc's ``-Xptxas -v`` report (registers, shared memory and spills of
+    every kernel)."""
+    out_dir = BUILD_ROOT / _source_hash(sources, flags)
     lib_path = out_dir / "librrtmgp_kernels.so"
     log_path = out_dir / "build.log"
     if lib_path.exists():
-        info = dict(path=str(lib_path), seconds=0.0, cached=True,
+        return dict(path=str(lib_path), seconds=0.0, cached=True,
                     log=log_path.read_text() if log_path.exists() else "")
-        _state["info"] = info
-        return info
 
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         procs = []
-        for src in SOURCES:
+        for src in sources:
             obj = os.path.join(tmp, src.replace(".cu", ".o"))
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-c", str(CSRC / src),
                    "-o", obj]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -135,21 +138,34 @@ def build() -> dict:
         log = "\n".join(logs)
         log_path.write_text(log)
         os.replace(tmp_lib, lib_path)
-    info = dict(path=str(lib_path), seconds=time.perf_counter() - t0,
+    return dict(path=str(lib_path), seconds=time.perf_counter() - t0,
                 cached=False, log=log)
-    _state["info"] = info
-    return info
+
+
+def build() -> dict:
+    """Compile the kernels if this source hash has no library yet (see
+    :func:`compile_library`)."""
+    if _state["info"] is None:
+        _state["info"] = compile_library()
+    return _state["info"]
+
+
+def load(path: str) -> ctypes.CDLL:
+    """Load a kernel library and declare the C signature of every entry
+    point it has."""
+    lib = ctypes.CDLL(path)
+    for name, args in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     if _state["lib"] is None:
-        lib = ctypes.CDLL(build()["path"])
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        _state["lib"] = lib
+        _state["lib"] = load(build()["path"])
     return _state["lib"]
 
 

@@ -5,10 +5,14 @@ Replaces ``rte_rrtmgp_tpu/ops/pallas/interp_kernel.py:725``
 gases times col_mix, minor intervals added) and either the Planck fraction
 (LW) or the Rayleigh k before its column-amount factor (SW).  Its plain
 twin is :func:`rte_rrtmgp_torch.ops.gas_optics.majmin_plain`.
+
+A block takes a tile of cells of one layer across neighbouring columns,
+times the chunk's G; :func:`interp_geometry` chooses the tile.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -16,13 +20,65 @@ import torch
 from . import _build
 from ._checks import on_cpu, require, stream_handle
 
+TILE_CELLS = 32     # cells a block (measured: PERF.md §6, PR 3)
+THREADS = 256       # threads a block
+
+
+@dataclasses.dataclass(frozen=True)
+class InterpGeometry:
+    """Launch geometry of one call: the cell tile runs along ``axis`` of
+    the (C, L) inputs (0: cells c*L + l at fixed l; 1: consecutive cells),
+    ``tc`` cells and ``threads`` threads a block, ``smem_bytes`` of shared
+    memory a block, ``blocks`` blocks."""
+
+    axis: int
+    tc: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+    def describe(self) -> str:
+        return (f"tile {self.tc} cells along axis {self.axis}, "
+                f"{self.threads} threads, {self.smem_bytes} B smem")
+
+
+def smem_words(tc: int, G: int, F: int, nspec: int, nent: int) -> int:
+    """32-bit words of shared memory a block holds (``smem_words`` of the
+    CUDA source): per cell itropo/jtemp/jpress, jeta and col_mix (2F
+    each), fmajor (8F), fminor (4F) and the minor scalings (nspec); the
+    chunk's g-point flavors (2G), quad flavors (2*ceil(G/4)), entry offsets
+    (G+1) and entries (4 each)."""
+    return tc * (3 + 16 * F + nspec) + 2 * G + 2 * ((G + 3) // 4) + G + 1 \
+        + 4 * nent
+
+
+def interp_geometry(C: int, L: int, G: int, F: int, nspec: int, nent: int,
+                    tc: int = TILE_CELLS,
+                    threads: int = THREADS) -> InterpGeometry:
+    """The tile runs along the longer axis of the (C, L) inputs: the column
+    axis in the default (ncol, nlay) call and in the layer-major
+    (nlay, ncol) one at any batch wider than it is deep.  ``tc`` is halved
+    until the block's shared memory fits."""
+    axis = 1 if L > C else 0
+    n_a, n_b = (L, C) if axis else (C, L)
+    tc = max(1, min(tc, n_a))
+    while tc > 1 and 4 * smem_words(tc, G, F, nspec, nent) > \
+            _build.SMEM_PER_BLOCK:
+        tc //= 2
+    smem = 4 * smem_words(tc, G, F, nspec, nent)
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"gas_optics_interp: {nent} minor entries and G={G} "
+                         f"need {smem} B of shared memory a block")
+    return InterpGeometry(axis, tc, threads, smem, -(-n_a // tc) * n_b)
+
 
 @functools.lru_cache(maxsize=64)
 def _minor_entries(specs: tuple, G: int, device: torch.device):
     """Per-g lists of the minor intervals covering each g-point of a chunk:
-    ``off`` (G+1,) int32 and ``ent`` (nent, 4) int32 rows (interval index in
-    ``specs`` order, atmosphere 0/1, contributor column, flavor), ordered by
-    g and, within one g, by interval."""
+    ``off`` (G+1,) int32 and ``ent`` (max(nent, 1), 4) int32 rows (interval
+    index in ``specs`` order, atmosphere 0/1, contributor column, flavor),
+    ordered by g and, within one g, by interval; ``nent`` the number of
+    rows."""
     per_g = [[] for _ in range(G)]
     for k, (atm, s) in enumerate(specs):
         for gg in range(s.gpt_start, s.gpt_end):
@@ -35,7 +91,14 @@ def _minor_entries(specs: tuple, G: int, device: torch.device):
         off.append(len(rows))
     ent = torch.tensor(rows or [(0, 0, 0, 0)], dtype=torch.int32,
                        device=device)
-    return torch.tensor(off, dtype=torch.int32, device=device), ent
+    return torch.tensor(off, dtype=torch.int32, device=device), ent, len(rows)
+
+
+def _check_extent(name: str, t: torch.Tensor) -> None:
+    """The kernel indexes tables with 32-bit offsets."""
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    if last >= 2 ** 31:
+        raise ValueError(f"{name}: {last + 1} elements exceed 32-bit offsets")
 
 
 def gas_optics_interp(kd, interp, sc, rayleigh: bool):
@@ -51,7 +114,6 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
     dev = kd.kmajor_rows.device
     f32, i32 = torch.float32, torch.int32
     C, L = interp.tropo.shape
-    N = C * L
     F = kd.nflav
     R, E, G = kd.kmajor_rows.shape
     specs = tuple(gas_optics.minor_specs(kd))
@@ -62,6 +124,7 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
             raise ValueError(f"{name}: expected a g-contiguous (R, {E}, {G}) "
                              f"table, got shape {tuple(t.shape)} strides "
                              f"{t.stride()}")
+        _check_extent(name, t)
     kmin_lo, kmin_up = kd.kminor_lower_trows, kd.kminor_upper_trows
     require("kminor_lower_trows", kmin_lo, dev, f32)
     require("kminor_upper_trows", kmin_up, dev, f32)
@@ -75,7 +138,8 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
     require("sc", sc, dev, f32, (C, L, len(specs)))
 
     gflav = gas_optics.gpoint_flavor_tensor(kd.gpoint_flavor, dev)
-    ent_off, ent = _minor_entries(specs, G, dev)
+    ent_off, ent, nent = _minor_entries(specs, G, dev)
+    geo = interp_geometry(C, L, G, F, len(specs), nent, TILE_CELLS, THREADS)
     out_a = torch.empty((C, L, G), dtype=f32, device=dev)
     out_b = torch.empty((C, L, G), dtype=f32, device=dev)
     rc = _build.library().rrtmgp_gas_optics_interp_f32(
@@ -88,8 +152,9 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
         interp.itropo01.data_ptr(), interp.jeta0.data_ptr(),
         interp.col_mix.data_ptr(), interp.fminor.data_ptr(),
         interp.fmajor.data_ptr(), gflav.data_ptr(), sc.data_ptr(), len(specs),
-        ent_off.data_ptr(), ent.data_ptr(), out_a.data_ptr(),
-        out_b.data_ptr(), N, G, F, kd.ntemp, kd.neta, stream_handle(dev))
+        ent_off.data_ptr(), ent.data_ptr(), nent, out_a.data_ptr(),
+        out_b.data_ptr(), C, L, G, F, kd.ntemp, kd.neta, geo.axis, geo.tc,
+        geo.threads, stream_handle(dev))
     _build.check(rc, "gas_optics_interp")
     _build.LAUNCHES["gas_optics_interp"] += 1
     return out_a, out_b

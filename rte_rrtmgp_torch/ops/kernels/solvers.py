@@ -15,12 +15,16 @@
   :func:`rte_rrtmgp_torch.ops.rte_lw.lw_sweep_lm_plain` and
   :func:`rte_rrtmgp_torch.ops.rte_sw.sw_2stream_lm_plain`.
 
-None needs G to be a multiple of 32 or 128, nor ncol a multiple of 8: a
-block is one column and its threads are the chunk's g-points, masked past G.
+None needs G to be a multiple of 32 or 128, nor ncol a multiple of 8.  An
+LW block is one column and its threads are the chunk's g-points, masked
+past G.  An SW block is one column and one tile of g-points, its working
+set in shared memory; :func:`sw_geometry` chooses the tile and whether the
+working set must live in a device scratch instead (only past ~440 layers).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -30,6 +34,65 @@ from . import _build
 from ._checks import on_cpu, require, stream_handle
 
 MAX_G = 1024   # one thread per g-point in a block
+SW_SLOTS = 4   # (nlay+1) x gt slots of a block's working set (sw_2stream.cu)
+SW_TILE = 32   # g-points an SW block (measured: PERF.md §6, PR 3)
+SW_THREADS = 128
+SW_TILES = (32, 64, 128)
+MAX_CLUSTER = 8   # blocks of a portable thread block cluster
+
+
+@dataclasses.dataclass(frozen=True)
+class SwGeometry:
+    """Launch geometry of one SW solve: ``gt`` g-points and ``threads``
+    threads a block, ``tiles`` blocks (one cluster) a column,
+    ``smem_bytes`` of shared memory a block, and ``scratch_floats`` of
+    device scratch for the whole launch (0 unless the working set does not
+    fit in shared memory: the global-scratch branch)."""
+
+    gt: int
+    threads: int
+    tiles: int
+    smem_bytes: int
+    scratch_floats: int
+
+    @property
+    def branch(self) -> str:
+        return "global" if self.scratch_floats else "shared"
+
+    def describe(self) -> str:
+        return (f"gt {self.gt} x {self.tiles} tiles, {self.threads} threads, "
+                f"{self.branch} branch, {self.smem_bytes} B smem, "
+                f"{4 * self.scratch_floats} B scratch")
+
+
+def sw_block_floats(nlay: int, gt: int, slots: int = SW_SLOTS) -> int:
+    """Floats of an SW block's working set: ``slots`` slots of
+    (nlay+1) x gt, then the level partials of up, dn and dir."""
+    return slots * (nlay + 1) * gt + 3 * (nlay + 1)
+
+
+def sw_geometry(ncol: int, nlay: int, G: int, gt: int = SW_TILE,
+                threads: int = SW_THREADS,
+                slots: int = SW_SLOTS) -> SwGeometry:
+    """The preferred tile ``gt``, widened until a column takes at most
+    :data:`MAX_CLUSTER` tiles, then narrowed (not below that) until the
+    working set fits in shared memory.  Where it fits at no width, the
+    narrowest allowed tile keeps it in a device scratch: at G <= 256
+    (tile 32) from nlay = 443."""
+    if not 0 < G <= MAX_G:
+        raise ValueError(f"sw_2stream: G={G} outside 1..{MAX_G}")
+    narrowest = next(t for t in SW_TILES if -(-G // t) <= MAX_CLUSTER)
+    gt = max(gt, narrowest)
+    fits = [t for t in SW_TILES if narrowest <= t <= gt
+            and 4 * sw_block_floats(nlay, t, slots) <= _build.SMEM_PER_BLOCK]
+    tile = fits[-1] if fits else narrowest
+    tiles = -(-G // tile)
+    threads = max(threads, tile)
+    if fits:
+        return SwGeometry(tile, threads, tiles,
+                          4 * sw_block_floats(nlay, tile, slots), 0)
+    return SwGeometry(tile, threads, tiles, 0,
+                      ncol * tiles * sw_block_floats(nlay, tile, slots))
 
 
 def lw_sweep(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
@@ -128,8 +191,6 @@ def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
         return sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                                 inc_flux_dir, inc_flux_dif)
     ncol, nlay, G = tau.shape
-    if G > MAX_G:
-        raise ValueError(f"sw_2stream: G={G} exceeds {MAX_G} g-points per chunk")
     return _sw_launch("sw_2stream", (ncol, nlay, G), ncol, nlay, G, tau, ssa,
                       g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
                       inc_flux_dif)
@@ -163,19 +224,19 @@ def _sw_launch(name, plane, ncol, nlay, G, tau, ssa, g, mu0, sfc_alb_dir,
         require(pname, t, dev, f32, (ncol, G))
     if inc_flux_dif is not None:
         require("inc_flux_dif", inc_flux_dif, dev, f32, (ncol, G))
+    geo = sw_geometry(ncol, nlay, G, SW_TILE, SW_THREADS, SW_SLOTS)
     up, dn, fdir = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
-    # rdif, tdif, and the two direct-beam sources per layer; albedo and
-    # source per level, in the operands' layout.
-    scratch = torch.empty(ncol * G * (4 * nlay + 2 * (nlay + 1)), dtype=f32,
-                          device=dev)
-    entry = getattr(_build.library(), f"rrtmgp_{name}_f32")
-    rc = entry(
+    scratch = (torch.empty(geo.scratch_floats, dtype=f32, device=dev)
+               if geo.scratch_floats else None)
+    rc = getattr(_build.library(), f"rrtmgp_{name}_f32")(
         tau.data_ptr(), ssa.data_ptr(), g.data_ptr(), mu0.data_ptr(),
         sfc_alb_dir.data_ptr(), sfc_alb_dif.data_ptr(),
         inc_flux_dir.data_ptr(),
         None if inc_flux_dif is None else inc_flux_dif.data_ptr(),
-        up.data_ptr(), dn.data_ptr(), fdir.data_ptr(), scratch.data_ptr(),
-        ncol, nlay, G, config.k_min(f32), config.eps(f32), stream_handle(dev))
+        up.data_ptr(), dn.data_ptr(), fdir.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        ncol, nlay, G, geo.gt, geo.threads, config.k_min(f32),
+        config.eps(f32), stream_handle(dev))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     return up, dn + fdir, fdir

@@ -67,19 +67,67 @@ def test_sw_2stream(cuda, G):
         _assert_close(a, b, name)
 
 
-def _gas_case(cuda, longwave):
-    """k-distribution (gpt_per_band 4) and a 9 x 20 atmosphere on the card."""
+def _sw_args(cuda, rng, ncol, nlay, G, lm):
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    plane = (lambda a: _lm(t(a))) if lm else t
+    return [plane(rng.uniform(0, 4, (ncol, nlay, G))),
+            plane(rng.uniform(0, 1, (ncol, nlay, G))),
+            plane(rng.uniform(0, 0.9, (ncol, nlay, G))),
+            t(rng.uniform(0.1, 1, ncol)), t(rng.uniform(0, 0.5, (ncol, G))),
+            t(rng.uniform(0, 0.5, (ncol, G))), t(rng.uniform(0, 100, (ncol, G))),
+            t(rng.uniform(0, 5, (ncol, G)))]
+
+
+def _sw_check(args, ncol, lm):
+    if lm:
+        got = b23.sw_2stream_lm(*args, ncol=ncol)
+        ref = rte_sw.sw_2stream_lm_plain(*args, ncol=ncol)
+    else:
+        got = b23.sw_2stream(*args)
+        ref = rte_sw.sw_2stream_plain(*args)
+    for name, a, b in zip(("up", "dn", "dir"), got, ref):
+        _assert_close(a, b, name)
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
+@pytest.mark.parametrize("tile", [32, 64, 128])
+@pytest.mark.parametrize("G", [12, 96, 128])
+def test_sw_2stream_tiles(cuda, monkeypatch, G, tile, lm):
+    """Every g-tile width (clusters of 1-4 blocks a column), an ncol that is
+    no multiple of anything, both layouts."""
+    monkeypatch.setattr(b23, "SW_TILE", tile)
+    ncol, nlay = 19, 72
+    _sw_check(_sw_args(cuda, np.random.default_rng(G + tile), ncol, nlay, G,
+                       lm), ncol, lm)
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
+@pytest.mark.parametrize("nlay", [1, 450])
+@pytest.mark.parametrize("G", [12, 96])
+def test_sw_2stream_depths(cuda, G, nlay, lm):
+    """One layer, and enough layers (450 at tile 32) to take the
+    global-scratch branch."""
+    ncol = 5
+    geo = b23.sw_geometry(ncol, nlay, G)
+    assert geo.branch == ("global" if nlay == 450 else "shared")
+    _sw_check(_sw_args(cuda, np.random.default_rng(nlay + G), ncol, nlay, G,
+                       lm), ncol, lm)
+
+
+def _gas_case(cuda, longwave, ncol=9, nlay=20, gpt_per_band=4):
+    """k-distribution and an ncol x nlay atmosphere on the card."""
     from rte_rrtmgp_torch.cases.profiles import make_atmosphere
     from rte_rrtmgp_torch.data import synthetic
     from rte_rrtmgp_torch.models.kdist import KDist
     gases = ["h2o", "co2", "o3", "n2o", "co", "ch4", "o2", "n2"]
-    kd = KDist.from_raw(synthetic.make_kdist_raw(longwave, gpt_per_band=4),
+    kd = KDist.from_raw(synthetic.make_kdist_raw(longwave,
+                                                 gpt_per_band=gpt_per_band),
                         gases, device=cuda)
-    atm = make_atmosphere(9, 20, seed=2)
+    atm = make_atmosphere(ncol, nlay, seed=2)
     t = lambda a: torch.tensor(np.ascontiguousarray(a[:, ::-1]),
                                dtype=torch.float32, device=cuda)
     play, tlay = t(atm["p_lay"]), t(atm["t_lay"])
-    vmr = t(atm["gas_concs"].materialize(gases, 9, 20))
+    vmr = t(atm["gas_concs"].materialize(gases, ncol, nlay))
     col_dry = go.get_col_dry(vmr[:, :, 0], t(atm["p_lev"]))
     col_gas = go.build_col_gas(vmr, col_dry)
     interp = go.interpolation(kd, play, tlay, col_gas)
@@ -96,6 +144,36 @@ def test_gas_optics_interp(cuda, longwave):
         ref = go.majmin_plain(kdc, interp, sc, rayleigh=not longwave)
         for name, a, b in zip(("tau", "second"), got, ref):
             _assert_close(a, b, f"{name} [{g0}, {g1})")
+
+
+def _exact(a, b, name):
+    err = float((a - b).abs().max())
+    assert err == 0.0, f"{name}: max abs err {err}, expected bit-equal"
+
+
+@pytest.mark.parametrize("tile", [8, 32, 64])
+@pytest.mark.parametrize("order", ["cm", "lm"])
+@pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
+def test_gas_optics_interp_exact(cuda, monkeypatch, longwave, order, tile):
+    """B1 bit-equal to its twin: chunks with minor intervals ([0, 12),
+    [0, 96)) and without ([128, 224)), G = 12 and 96, a chunk view starting
+    off a 16-byte boundary with a ragged tail ([2, 15): the scalar path),
+    37 x 20 cells (no multiple of the tile), in column-major and
+    layer-major cell order."""
+    monkeypatch.setattr(b1, "TILE_CELLS", tile)
+    kd, interp, play, tlay, col_gas, _ = _gas_case(cuda, longwave, 37, 20,
+                                                   gpt_per_band=16)
+    if order == "lm":
+        interp, play, tlay, col_gas = map(go.layer_major,
+                                          (interp, play, tlay, col_gas))
+    for g0, g1 in ((0, 12), (0, 96), (128, 224), (2, 15)):
+        kdc = kd.slice_gpt(g0, g1)
+        sc = go.minor_scaling(kdc, interp, play, tlay, col_gas)
+        got = b1.gas_optics_interp(kdc, interp, sc, rayleigh=not longwave)
+        ref = go.majmin_plain(kdc, interp, sc, rayleigh=not longwave)
+        for name, a, b in zip(("tau", "second"), got, ref):
+            _exact(a, b, f"{name} [{g0}, {g1}) minor="
+                         f"{len(go.minor_specs(kdc))}")
 
 
 @pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])

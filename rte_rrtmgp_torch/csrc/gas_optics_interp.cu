@@ -34,7 +34,11 @@
 //     outputs allow it (strides multiples of 4, 16-byte aligned, G a
 //     multiple of 4; the chunk views at ngpt 256/224 and starts 0/128 do);
 //     a ragged tail, mixed flavors or an unaligned view take the scalar
-//     code of the same loop.
+//     code of the same loop.  The minor intervals of such a quad are read
+//     the same way where the four g-points share their interval list with
+//     consecutive contributor columns from a multiple of 4 (the host marks
+//     those quads): 16-byte loads of the minor tables, each interval's
+//     weights read once for the four.
 //   * Indexing: one 64-bit base per cell; table offsets and everything
 //     inside the block are 32-bit (the wrapper checks the tables' extent);
 //     no 64-bit division anywhere.
@@ -88,6 +92,7 @@ struct Tables {
     const float* b;
     int b_sr, b_se;
     bool rayleigh;
+    bool minor_vec;     // minor tables allow 16-byte loads
     const float* kmin_lo;
     int ncont_lo;
     const float* kmin_up;
@@ -203,6 +208,42 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src)
                  :: "r"(s), "l"(src) : "memory");
 }
 
+// The minor intervals of a quad of g-points from g whose four entry lists
+// match (same intervals, contributor columns col..col+3): the per-g
+// arithmetic and order of add_minor, four g-points a load.
+__device__ __forceinline__ void add_minor4(const Tables& t, const Cell& x,
+                                           const int* eoff, const int* ents,
+                                           int g, float (&tau)[4])
+{
+    const int F = t.F;
+    for (int e = eoff[g]; e < eoff[g + 1]; ++e) {
+        const int* en = ents + 4 * e;
+        const int atm = en[1];
+        if (atm != x.it) continue;
+        const int k = en[0];
+        const int col = en[2];
+        const int mf = en[3];
+        const float* km = atm ? t.kmin_up : t.kmin_lo;
+        const int nc = atm ? t.ncont_up : t.ncont_lo;
+        const int je0 = x.je[mf];
+        const int je1 = x.je[F + mf];
+        float k00[4], k01[4], k10[4], k11[4];
+        load(k00, km + (x.jt * t.neta + je0) * nc + col);
+        load(k01, km + (x.jt * t.neta + je0 + 1) * nc + col);
+        load(k10, km + ((x.jt + 1) * t.neta + je1) * nc + col);
+        load(k11, km + ((x.jt + 1) * t.neta + je1 + 1) * nc + col);
+        const float f0 = x.fmin[mf], f1 = x.fmin[F + mf];
+        const float f2 = x.fmin[2 * F + mf], f3 = x.fmin[3 * F + mf];
+        const float scale = x.sc[k];
+        #pragma unroll
+        for (int v = 0; v < 4; ++v) {
+            const float ltau = (f0 * k00[v] + f1 * k01[v])
+                             + (f2 * k10[v] + f3 * k11[v]);
+            tau[v] = tau[v] + ltau * scale;
+        }
+    }
+}
+
 // w values of each of the block's cells, cell-major: dst[k*w + j] =
 // src[n_k*w + j] with n_k = n0 + k*sa (all copies in flight at once).
 template <typename T>
@@ -224,8 +265,9 @@ __global__ void gas_optics_interp_kernel(
     const float* __restrict__ fmajor, const int* __restrict__ gflav,
     const float* __restrict__ sc, int nspec,
     const int* __restrict__ ent_off, const int* __restrict__ ent, int nent,
-    float* __restrict__ out_a, float* __restrict__ out_b,
-    int C, int L, int G, int axis, int tc, bool vec)
+    const int* __restrict__ quad_minor, float* __restrict__ out_a,
+    float* __restrict__ out_b, int C, int L, int G, int axis, int tc,
+    bool vec)
 {
     extern __shared__ __align__(16) int sm[];
     const int F = t.F;
@@ -252,7 +294,8 @@ __global__ void gas_optics_interp_kernel(
     float* const sc_s = fmin_s + tc * 4 * F;
     int* const gf_s = reinterpret_cast<int*>(sc_s + tc * nspec);
     int* const qf_s = gf_s + 2 * G;
-    int* const eoff_s = qf_s + 2 * nq;
+    int* const qm_s = qf_s + 2 * nq;
+    int* const eoff_s = qm_s + nq;
     int* const ent_s = eoff_s + G + 1;
 
     stage(it_s, itropo01, 1, n0, sa, ncell);
@@ -265,6 +308,8 @@ __global__ void gas_optics_interp_kernel(
     stage(sc_s, sc, nspec, n0, sa, ncell);
     for (int i = threadIdx.x; i < 2 * G; i += blockDim.x)
         cp_async4(gf_s + i, gflav + i);
+    for (int i = threadIdx.x; i < nq; i += blockDim.x)
+        cp_async4(qm_s + i, quad_minor + i);
     for (int i = threadIdx.x; i <= G; i += blockDim.x)
         cp_async4(eoff_s + i, ent_off + i);
     for (int i = threadIdx.x; i < 4 * nent; i += blockDim.x)
@@ -302,9 +347,13 @@ __global__ void gas_optics_interp_kernel(
         if (f4 >= 0) {
             float tau[4], second[4];
             major<4>(t, x, f4, g, tau, second);
-            #pragma unroll
-            for (int v = 0; v < 4; ++v)
-                tau[v] = add_minor(t, x, eoff_s, ent_s, g + v, tau[v]);
+            if (t.minor_vec && qm_s[g >> 2]) {
+                add_minor4(t, x, eoff_s, ent_s, g, tau);
+            } else {
+                #pragma unroll
+                for (int v = 0; v < 4; ++v)
+                    tau[v] = add_minor(t, x, eoff_s, ent_s, g + v, tau[v]);
+            }
             store<4>(out_a + row, tau);
             store<4>(out_b + row, second);
         } else {
@@ -326,7 +375,7 @@ __global__ void gas_optics_interp_kernel(
 static long long smem_words(int tc, int G, int F, int nspec, int nent)
 {
     const int nq = (G + 3) / 4;
-    return (long long)tc * (3 + 16 * F + nspec) + 2LL * G + 2LL * nq + G + 1
+    return (long long)tc * (3 + 16 * F + nspec) + 2LL * G + 3LL * nq + G + 1
            + 4LL * nent;
 }
 
@@ -340,8 +389,9 @@ extern "C" int rrtmgp_gas_optics_interp_f32(
     const int* jtemp0, const int* jpress0, const int* itropo01,
     const int* jeta0, const float* col_mix, const float* fminor,
     const float* fmajor, const int* gflav, const float* sc, int nspec,
-    const int* ent_off, const int* ent, int nent, float* out_a,
-    float* out_b, int C, int L, int G, int F, int ntemp, int neta,
+    const int* ent_off, const int* ent, int nent, const int* quad_minor,
+    float* out_a, float* out_b, int C, int L, int G, int F, int ntemp,
+    int neta,
     int axis, int tc, int threads, void* stream)
 {
     if (tc <= 0 || threads <= 0 || threads > 1024 || threads % 32)
@@ -370,6 +420,8 @@ extern "C" int rrtmgp_gas_optics_interp_f32(
         t.ncont_lo = ncont_lo;
         t.kmin_up = kmin_up;
         t.ncont_up = ncont_up;
+        t.minor_vec = ((ncont_lo | ncont_up) & 3) == 0
+            && (((uintptr_t)kmin_lo | (uintptr_t)kmin_up) & 15) == 0;
         t.ntemp = ntemp;
         t.neta = neta;
         t.F = F;
@@ -380,8 +432,8 @@ extern "C" int rrtmgp_gas_optics_interp_f32(
         gas_optics_interp_kernel<<<(unsigned int)blocks, threads, smem,
                                    (cudaStream_t)stream>>>(
             t, jtemp0, jpress0, itropo01, jeta0, col_mix, fminor, fmajor,
-            gflav, sc, nspec, ent_off, ent, nent, out_a, out_b, C, L, G,
-            axis, tc, vec);
+            gflav, sc, nspec, ent_off, ent, nent, quad_minor, out_a, out_b,
+            C, L, G, axis, tc, vec);
     }
     return (int)cudaGetLastError();
 }

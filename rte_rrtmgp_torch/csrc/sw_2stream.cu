@@ -17,69 +17,76 @@
 // rte_solver_kernels.cu:196-286, 543-655).  up, diffuse dn and dir are
 // summed over g into (ncol, nlev); the caller adds the direct beam to dn.
 //
-// What bounds it on the H100: bytes.  tau, ssa and g (three plane-sized
-// inputs, 75.5 MB each at 2048x72x128) are read once; the outputs are
-// (ncol, nlev).  The working set of a (column, g) pair, nlay-deep arrays
+// What bounds it on the H100.  By count, bytes: tau, ssa and g (three
+// plane-sized inputs, 75.5 MB each at 2048x72x128) are read once and the
+// outputs are (ncol, nlev).  In practice, latency and instructions: the
+// recurrences over layers are serial per (column, g), and each (layer, g)
+// costs ~140 instructions of coefficients (two exp, a sqrt, three
+// reciprocals).  The working set of a (column, g) pair, nlay-deep arrays
 // that the two sweeps walk in opposite directions, stays in shared memory,
 // as the TPU kept it in VMEM: nothing of size (cell, g) goes through
-// device memory.
+// device memory, and the serial passes touch only shared memory.
 //
 // Design.  A block owns one column and one tile of GT g-points (GT = 32,
 // 64 or 128, chosen by the wrapper); the tiles of one column form a thread
-// block cluster, and the cluster's rank-0 block sums the tiles' level
-// partials through distributed shared memory, in rank order (no atomics,
-// the same result on every run).  Shared memory holds four slots of
-// (nlay+1) x GT floats, each reused once its value is dead:
-//   0. cp.async brings tau, ssa and g into slots 0-2 (16-byte copies where
-//      the planes allow, 4-byte otherwise), with no registers in flight;
-//   1. serial over layers, one thread per g: the direct beam, a running
-//      product of exp(-tau/mu0), into slot 3 (the incident beam of each
-//      layer and the surface beam);
-//   2. layer-parallel, all threads: the level sums of the direct beam,
-//      then the coefficients of every (layer, g) (t_noscat recomputed, as
-//      the TPU's `_sw_coeff_adding_kernel` does), slots 0-3 := rdif, tdif,
-//      r_dir*fdir, t_dir*fdir;
-//   3. serial up-sweep from the surface: albedo and source, leaving per
+// block cluster whose blocks push their level partials into the rank-0
+// block's shared memory, which sums them in rank order after one cluster
+// barrier (no atomics, the same result on every run).  Shared memory holds
+// five slots S0-S4 of (nlay+1) x GT floats, each reused once its value is
+// dead.  Every transcendental and division runs in one layer-parallel
+// pass; the serial passes over layers carry only the recurrences:
+//   0. cp.async brings tau, ssa and g into S0-S2 (16-byte copies where the
+//      planes allow, 4-byte otherwise), with no registers in flight;
+//   1. layer-parallel, all threads: the coefficients of every (layer, g):
+//      S0-S4 := rdif, tdif, r_dir, t_dir, t_noscat, the reciprocals by
+//      rcp below and exp(-tau/mu0) with the column's 1/mu0 (the twin
+//      divides; the results differ by an ulp or so);
+//   2. serial, one thread per g (its own column of the slots, so 2-4 need
+//      no barrier): the direct beam, a running product of t_noscat, over
+//      S4 in place (row l := the beam incident on layer l, row nlay := the
+//      surface beam);
+//   3. serial up-sweep from the surface with the direct-beam sources
+//      sup = r_dir*fdir, sdn = t_dir*fdir: albedo and source, leaving per
 //      layer the four numbers the down-sweep needs (the TPU's form):
-//      c1 = tdif*denom, c0 = (rdif*src_below + sdn)*denom, a1 = alb_below,
-//      s1 = src_below;
-//   4. serial down-sweep: d = c1*d + c0, u = d*a1 + s1, written back over
-//      a1/s1 (level 0 in the spare row nlay);
-//   5. layer-parallel level sums of u and d, then the cluster's sum.
-// Compiled with RRTMGP_SW_TWIN_ORDER=1 the sweeps keep the twin's order of
-// operations instead (rdif, tdif, sdn, src_below and alb_below kept, denom
-// recomputed in the down-sweep; five slots): a measured variant, not the
-// library's build.
+//      S0-S3 := c1 = tdif*denom, c0 = (rdif*src_below + sdn)*denom,
+//      a1 = alb_below, s1 = src_below, and the top albedo and source in the
+//      spare rows nlay of S2, S3;
+//   4. serial down-sweep d = c1*d + c0 over S0 (row l := diffuse dn at
+//      level l+1, the spare row nlay := level 0);
+//   5. layer-parallel: u = d*a1 + s1 at every level, the level sums of u, d
+//      and the direct beam, then the cluster's sum.
+// The serial passes are latency-bound (32 recurrences a block, one a
+// lane), so they are kept short: they load a chunk of 4-8 layers into
+// registers at once and run the recurrence over it unpredicated (a scalar
+// loop takes the remainder), and the up-sweep's 1/(1 - rdif*alb) is the
+// hardware reciprocal refined by one Newton step (see rcp) rather than an
+// IEEE division with its range check and branch, with explicit fused
+// multiply-adds on the albedo chain (1 - rdif*alb and the new albedo).
 //
-// The global-scratch branch.  Shared memory holds NSLOT*(nlay+1)*GT +
-// 3*(nlay+1) floats a block.  Where that exceeds the 227 KB a block may use
-// even at the narrowest tile the cluster limit allows (GT = 32 for G <= 256:
-// nlay >= 443), the wrapper passes a device scratch of that size per block
-// and the same kernel keeps its slots there (plain loads instead of
-// cp.async).  Shapes choose the branch; nothing else differs.
+// The global-scratch branch.  Shared memory holds NSLOT*(nlay+1)*GT floats
+// and 3*(nlay+1) level partials for each of the column's tiles.  Where that
+// exceeds the 227 KB a block may use even at the narrowest tile the
+// cluster limit allows (GT = 32: from nlay = 337 at G = 97..128, from
+// nlay = 356 at G <= 32), the wrapper passes a device scratch of that size
+// per block and the same kernel keeps its slots there (plain loads instead
+// of cp.async).  Shapes choose the branch; nothing else differs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "reduce.cuh"
-
-#ifndef RRTMGP_SW_TWIN_ORDER
-#define RRTMGP_SW_TWIN_ORDER 0
-#endif
-
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr bool kTwinOrder = RRTMGP_SW_TWIN_ORDER != 0;
-constexpr int NSLOT = kTwinOrder ? 5 : 4;
+constexpr int NSLOT = 5;
 
 // Floats of a block's working set: NSLOT slots of (nlay+1) x gt, then the
-// level partials of up, dn and dir.
-__host__ __device__ inline long long block_floats(int nlay, int gt)
+// level partials (up, dn, dir) of each of the column's tiles.
+__host__ __device__ inline long long block_floats(int nlay, int gt,
+                                                  int ntiles)
 {
-    return (long long)NSLOT * (nlay + 1) * gt + 3LL * (nlay + 1);
+    return ((long long)NSLOT * gt + 3LL * ntiles) * (nlay + 1);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src)
@@ -96,32 +103,60 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src)
                  :: "r"(s), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all()
+// 1/y for a normal y (neither zero nor subnormal): the hardware
+// approximation and one Newton step, within 1 ulp of the IEEE quotient and
+// without the IEEE division's range check and branch.  Its arguments here
+// are 1 - rdif*alb in (0, 1], the two-stream denominator
+// k(1+e^2) + gamma1(1-e^2) >= k, and 1 - (k*mu0)^2 of magnitude >= eps.
+__device__ __forceinline__ float rcp(float y)
 {
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
-                 ::: "memory");
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+    return fmaf(r, fmaf(-y, r, 1.0f), r);
 }
 
-// Sums slot rows over the tile's active g-points: part[lev] = sum_j
-// s[row(lev)*GT + j], one warp per level, lanes over j then shuffles.
-template <int GT>
-__device__ __forceinline__ void level_sums(const float* s, int nlay, int gw,
-                                           bool shifted, float* part)
+// Sums over the tile's active g-points of three values at every level:
+// out[q*nlev + lev] = sum_j value(lev, j)[q].  A level's GT g-points are
+// split into GT/4 runs of four, one a lane, in consecutive lanes of one
+// warp; each lane adds its run in order, then the lanes' sums meet in an
+// xor-shuffle tree.
+template <int GT, typename V>
+__device__ __forceinline__ void level_sums(int nlev, int gw, V value,
+                                           float* out)
 {
-    const int lane = threadIdx.x & 31;
-    const int nwarp = blockDim.x >> 5;
-    for (int lev = threadIdx.x >> 5; lev <= nlay; lev += nwarp) {
-        // Down-sweep rows: level 0 in the spare row nlay, level l+1 in row l.
-        const int row = shifted ? (lev == 0 ? nlay : lev - 1) : lev;
-        float v = 0.0f;
-        for (int j = lane; j < gw; j += 32)
-            v += s[row * GT + j];
-        v = rrtmgp::warp_sum(v);
-        if (lane == 0) part[lev] = v;
+    constexpr int R = GT / 4;   // runs a level: 8, 16 or 32 lanes
+    const int n = nlev * R;
+    for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+        const int i = i0 + threadIdx.x;
+        const int lev = i / R;
+        const int j0 = (i - lev * R) * 4;
+        float3 v = make_float3(0.0f, 0.0f, 0.0f);
+        if (i < n) {
+            #pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (j0 + q < gw) {
+                    const float3 x = value(lev, j0 + q);
+                    v.x += x.x;
+                    v.y += x.y;
+                    v.z += x.z;
+                }
+            }
+        }
+        #pragma unroll
+        for (int o = R / 2; o > 0; o >>= 1) {
+            v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+            v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+            v.z += __shfl_xor_sync(0xffffffffu, v.z, o);
+        }
+        if (i < n && j0 == 0) {
+            out[lev] = v.x;
+            out[nlev + lev] = v.y;
+            out[2 * nlev + lev] = v.z;
+        }
     }
 }
 
-template <bool LM, int GT>
+template <bool LM, int GT, bool GLOBAL>
 __global__ void sw_2stream_kernel(
     const float* __restrict__ tau, const float* __restrict__ ssa,
     const float* __restrict__ gasy, const float* __restrict__ mu0,
@@ -142,52 +177,35 @@ __global__ void sw_2stream_kernel(
     const int gw = min(GT, G - g0);
     const int tid = threadIdx.x;
     const int nlev = nlay + 1;
-    const bool in_smem = scratch == nullptr;
+    const long long bf = block_floats(nlay, GT, ntiles);
 
-    float* const work = in_smem
-        ? smem : scratch + (long long)blockIdx.x * block_floats(nlay, GT);
+    // The slots' address space is known at compile time, so the shared
+    // branch uses shared-memory loads and stores throughout.
+    float* const work = GLOBAL ? scratch + (long long)blockIdx.x * bf : smem;
     const int slot = nlev * GT;
     float* const S0 = work;
     float* const S1 = work + slot;
     float* const S2 = work + 2 * slot;
     float* const S3 = work + 3 * slot;
-    [[maybe_unused]] float* const S4 = work + 4 * slot;   // twin order
-    float* const part = work + NSLOT * slot;   // [up, dn, dir][nlev]
+    float* const S4 = work + 4 * slot;
+    // Rank 0's partials [tile][up, dn, dir][nlev], where every tile of the
+    // column writes its own.
+    float* const part0 = GLOBAL
+        ? scratch + (long long)(blockIdx.x - rank) * bf + NSLOT * slot
+        : cluster.map_shared_rank(smem, 0) + NSLOT * slot;
+    float* const part = part0 + rank * 3 * nlev;
 
     // Row l of this tile in every plane: base + l*ls.  Column-major
     // (c*nlay + l)*G + g0; layer-major (l*ncol + c)*G + g0.
     const long long ls = LM ? (long long)ncol * G : G;
     const long long base = (LM ? c : c * nlay) * G + g0;
     const long long cg0 = c * G + g0;
+    // A block may write into rank 0's shared memory only once every block
+    // of the cluster runs: arrive here, wait before the first such write.
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-    // --- 0. tau, ssa, g -> slots 0-2 ---
-    if (in_smem) {
-        const bool vec = (G & 3) == 0
-            && (((uintptr_t)tau | (uintptr_t)ssa | (uintptr_t)gasy) & 15) == 0;
-        if (vec) {
-            constexpr int Q = GT / 4;
-            for (int e = tid; e < nlay * Q; e += blockDim.x) {
-                const int l = e / Q;
-                const int j = (e - l * Q) * 4;
-                if (j >= gw) continue;
-                const long long o = base + (long long)l * ls + j;
-                cp_async16(S0 + l * GT + j, tau + o);
-                cp_async16(S1 + l * GT + j, ssa + o);
-                cp_async16(S2 + l * GT + j, gasy + o);
-            }
-        } else {
-            for (int e = tid; e < nlay * GT; e += blockDim.x) {
-                const int l = e / GT;
-                const int j = e - l * GT;
-                if (j >= gw) continue;
-                const long long o = base + (long long)l * ls + j;
-                cp_async4(S0 + e, tau + o);
-                cp_async4(S1 + e, ssa + o);
-                cp_async4(S2 + e, gasy + o);
-            }
-        }
-        cp_async_wait_all();
-    } else {
+    // --- 0. tau, ssa, g -> S0-S2 ---
+    if (GLOBAL) {
         for (int e = tid; e < nlay * GT; e += blockDim.x) {
             const int l = e / GT;
             const int j = e - l * GT;
@@ -197,33 +215,42 @@ __global__ void sw_2stream_kernel(
             S1[e] = ssa[o];
             S2[e] = gasy[o];
         }
-    }
-    __syncthreads();
-
-    // --- 1. direct beam, top down: slot 3 row l = beam incident on layer
-    // l, row nlay = the surface beam ---
-    const float m = mu0[c];
-    if (tid < gw) {
-        float fdir = inc_dir[cg0 + tid] * m;
-        S3[tid] = fdir;
-        #pragma unroll 4
-        for (int l = 0; l < nlay; ++l) {
-            fdir = expf(-S0[l * GT + tid] / m) * fdir;
-            S3[(l + 1) * GT + tid] = fdir;
+    } else if ((G & 3) == 0
+               && (((uintptr_t)tau | (uintptr_t)ssa | (uintptr_t)gasy) & 15)
+                      == 0) {
+        constexpr int Q = GT / 4;
+        for (int e = tid; e < nlay * Q; e += blockDim.x) {
+            const int l = e / Q;
+            const int j = (e - l * Q) * 4;
+            if (j >= gw) continue;
+            const long long o = base + (long long)l * ls + j;
+            cp_async16(S0 + l * GT + j, tau + o);
+            cp_async16(S1 + l * GT + j, ssa + o);
+            cp_async16(S2 + l * GT + j, gasy + o);
+        }
+    } else {
+        for (int e = tid; e < nlay * GT; e += blockDim.x) {
+            const int l = e / GT;
+            const int j = e - l * GT;
+            if (j >= gw) continue;
+            const long long o = base + (long long)l * ls + j;
+            cp_async4(S0 + e, tau + o);
+            cp_async4(S1 + e, ssa + o);
+            cp_async4(S2 + e, gasy + o);
         }
     }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+                 ::: "memory");
     __syncthreads();
 
-    // --- 2. level sums of the direct beam, then the coefficients ---
-    level_sums<GT>(S3, nlay, gw, false, part + 2 * nlev);
-    __syncthreads();
+    // --- 1. coefficients of every (layer, g) ---
+    const float m = mu0[c];
+    const float minv = 1.0f / m;
     for (int e = tid; e < nlay * GT; e += blockDim.x) {
-        const int j = e % GT;
-        if (j >= gw) continue;
+        if (e % GT >= gw) continue;
         const float t = S0[e];
         const float w = S1[e];
         const float a = S2[e];
-        const float fdir = S3[e];
         const float gamma1 = (8.0f - w * (5.0f + 3.0f * a)) * 0.25f;
         const float gamma2 = 3.0f * (w * (1.0f - a)) * 0.25f;
         const float gamma3 = (2.0f - 3.0f * m * a) * 0.25f;
@@ -235,18 +262,18 @@ __global__ void sw_2stream_kernel(
                                     kmin));
         const float exp_mkt = expf(-t * k);
         const float exp_m2kt = exp_mkt * exp_mkt;
-        const float rt_term = 1.0f / (k * (1.0f + exp_m2kt)
-                                      + gamma1 * (1.0f - exp_m2kt));
+        const float rt_term = rcp(k * (1.0f + exp_m2kt)
+                                  + gamma1 * (1.0f - exp_m2kt));
         const float rdif = rt_term * gamma2 * (1.0f - exp_m2kt);
         const float tdif = rt_term * 2.0f * k * exp_mkt;
-        const float t_noscat = expf(-t / m);
+        const float t_noscat = expf(-t * minv);
 
         const float k_mu = k * m;
         const float k_g3 = k * gamma3;
         const float k_g4 = k * gamma4;
         const float one_m = 1.0f - k_mu * k_mu;
         const float fact = (fabsf(one_m) > tmin) ? one_m : tmin;
-        const float rt2 = w * rt_term / fact;
+        const float rt2 = w * rt_term * rcp(fact);
         float r_dir = rt2 * ((1.0f - k_mu) * (alpha2 + k_g3)
                              - (1.0f + k_mu) * (alpha2 - k_g3) * exp_m2kt
                              - 2.0f * (k_g3 - alpha2 * k_mu) * exp_mkt
@@ -261,100 +288,128 @@ __global__ void sw_2stream_kernel(
 
         S0[e] = rdif;
         S1[e] = tdif;
-        S2[e] = r_dir * fdir;
-        S3[e] = t_dir * fdir;
+        S2[e] = r_dir;
+        S3[e] = t_dir;
+        S4[e] = t_noscat;
     }
     __syncthreads();
 
-    // --- 3. + 4. the adding sweeps, one thread per g (its own column of
-    // the slots: no barrier between them) ---
+    // --- 2.-4. the serial passes, one thread per g ---
     if (tid < gw) {
         const int j = tid;
-        float alb = alb_dif[cg0 + j];
-        float src = S3[nlay * GT + j] * alb_dir[cg0 + j];
-        #pragma unroll 4
-        for (int l = nlay - 1; l >= 0; --l) {
-            const int e = l * GT + j;
-            const float rdif = S0[e];
-            const float tdif = S1[e];
-            const float sup = S2[e];
-            const float sdn = S3[e];
-            const float denom = 1.0f / (1.0f - rdif * alb);
-            if constexpr (kTwinOrder) {
-                S2[e] = src;
-                S4[e] = alb;
-            } else {
-                S0[e] = tdif * denom;
-                S1[e] = (rdif * src + sdn) * denom;
-                S2[e] = alb;
-                S3[e] = src;
-            }
-            src = sup + tdif * denom * (src + alb * sdn);
-            alb = rdif + tdif * tdif * alb * denom;
+        // 2. direct beam, top down, over S4 in place.
+        float fdir = inc_dir[cg0 + j] * m;
+        auto beam = [&](int l, float t) {
+            S4[l * GT + j] = fdir;
+            fdir = t * fdir;
+        };
+        int l = 0;
+        for (; l + 8 <= nlay; l += 8) {
+            float t[8];
+            #pragma unroll
+            for (int k = 0; k < 8; ++k) t[k] = S4[(l + k) * GT + j];
+            #pragma unroll
+            for (int k = 0; k < 8; ++k) beam(l + k, t[k]);
         }
+        for (; l < nlay; ++l) beam(l, S4[l * GT + j]);
+        S4[nlay * GT + j] = fdir;
 
-        float d = inc_dif ? inc_dif[cg0 + j] : 0.0f;
-        S2[nlay * GT + j] = d * alb + src;
-        S3[nlay * GT + j] = d;
-        #pragma unroll 4
-        for (int l = 0; l < nlay; ++l) {
+        // 3. adding up-sweep from the surface.
+        float alb = alb_dif[cg0 + j];
+        float src = fdir * alb_dir[cg0 + j];
+        auto adding = [&](int l, float rdif, float tdif, float r_dir,
+                          float t_dir, float fd) {
             const int e = l * GT + j;
-            float u;
-            if constexpr (kTwinOrder) {
-                const float rdif = S0[e];
-                const float alb1 = S4[e];
-                const float src1 = S2[e];
-                const float denom = 1.0f / (1.0f - rdif * alb1);
-                d = (S1[e] * d + rdif * src1 + S3[e]) * denom;
-                u = d * alb1 + src1;
-            } else {
-                d = S0[e] * d + S1[e];
-                u = d * S2[e] + S3[e];
+            const float sup = r_dir * fd;
+            const float sdn = t_dir * fd;
+            const float denom = rcp(fmaf(-rdif, alb, 1.0f));
+            S0[e] = tdif * denom;
+            S1[e] = (rdif * src + sdn) * denom;
+            S2[e] = alb;
+            S3[e] = src;
+            src = sup + tdif * denom * (src + alb * sdn);
+            alb = fmaf(tdif * tdif * alb, denom, rdif);
+        };
+        for (l = nlay - 1; l >= 3; l -= 4) {
+            float v[5][4];
+            #pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int e = (l - k) * GT + j;
+                v[0][k] = S0[e];
+                v[1][k] = S1[e];
+                v[2][k] = S2[e];
+                v[3][k] = S3[e];
+                v[4][k] = S4[e];
             }
-            S2[e] = u;
-            S3[e] = d;
+            #pragma unroll
+            for (int k = 0; k < 4; ++k)
+                adding(l - k, v[0][k], v[1][k], v[2][k], v[3][k], v[4][k]);
         }
+        for (; l >= 0; --l) {
+            const int e = l * GT + j;
+            adding(l, S0[e], S1[e], S2[e], S3[e], S4[e]);
+        }
+        S2[nlay * GT + j] = alb;
+        S3[nlay * GT + j] = src;
+
+        // 4. diffuse down-sweep.
+        float d = inc_dif ? inc_dif[cg0 + j] : 0.0f;
+        S0[nlay * GT + j] = d;
+        auto down = [&](int l, float c1, float c0) {
+            d = c1 * d + c0;
+            S0[l * GT + j] = d;
+        };
+        for (l = 0; l + 8 <= nlay; l += 8) {
+            float c1[8], c0[8];
+            #pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                c1[k] = S0[(l + k) * GT + j];
+                c0[k] = S1[(l + k) * GT + j];
+            }
+            #pragma unroll
+            for (int k = 0; k < 8; ++k) down(l + k, c1[k], c0[k]);
+        }
+        for (; l < nlay; ++l) down(l, S0[l * GT + j], S1[l * GT + j]);
     }
     __syncthreads();
 
-    // --- 5. level sums of up and dn, then the cluster's sum ---
-    level_sums<GT>(S2, nlay, gw, true, part);
-    level_sums<GT>(S3, nlay, gw, true, part + nlev);
-    if (!in_smem) __threadfence();
+    // --- 5. level sums of up, dn and the direct beam; the cluster's sum.
+    // Level 0 takes d0 and the top albedo and source (rows nlay of S0, S2,
+    // S3), level l+1 the d of row l and the a1, s1 of layer l. ---
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    level_sums<GT>(nlev, gw, [&](int lev, int j) {
+        const int r = (lev == 0 ? nlay : lev - 1) * GT + j;
+        const float d = S0[r];
+        return make_float3(d * S2[r] + S3[r], d, S4[lev * GT + j]);
+    }, part);
+    if (GLOBAL) __threadfence();
     cluster.sync();
     if (rank == 0) {
         float* const out[3] = {up, dn, dir};
-        const long long block0 = blockIdx.x;
         for (int i = tid; i < 3 * nlev; i += blockDim.x) {
-            float s = 0.0f;
-            for (int r = 0; r < ntiles; ++r) {
-                const float* p = in_smem
-                    ? cluster.map_shared_rank(part, r)
-                    : scratch + (block0 + r) * block_floats(nlay, GT)
-                          + NSLOT * (long long)slot;
-                s += p[i];
-            }
+            float sum = 0.0f;
+            for (int r = 0; r < ntiles; ++r)
+                sum += part0[r * 3 * nlev + i];
             const int q = i / nlev;
-            out[q][c * nlev + (i - q * nlev)] = s;
+            out[q][c * nlev + (i - q * nlev)] = sum;
         }
     }
-    // Peers keep their shared memory until rank 0 has read it.
-    cluster.sync();
 }
 
-template <bool LM, int GT>
-int launch_gt(const float* tau, const float* ssa, const float* g,
-              const float* mu0, const float* alb_dir, const float* alb_dif,
-              const float* inc_dir, const float* inc_dif, float* up,
-              float* dn, float* dir, float* scratch, int ncol, int nlay,
-              int G, int threads, float kmin, float tmin, void* stream)
+template <bool LM, int GT, bool GLOBAL>
+int launch_branch(const float* tau, const float* ssa, const float* g,
+                  const float* mu0, const float* alb_dir,
+                  const float* alb_dif, const float* inc_dir,
+                  const float* inc_dif, float* up, float* dn, float* dir,
+                  float* scratch, int ncol, int nlay, int G, int threads,
+                  float kmin, float tmin, void* stream)
 {
     const int ntiles = (G + GT - 1) / GT;
     if (ntiles > 8 || threads < 32 || threads % 32 || threads > 1024)
         return (int)cudaErrorInvalidConfiguration;
     const size_t smem = scratch
-        ? 0 : sizeof(float) * (size_t)block_floats(nlay, GT);
-    auto kern = sw_2stream_kernel<LM, GT>;
+        ? 0 : sizeof(float) * (size_t)block_floats(nlay, GT, ntiles);
+    auto kern = sw_2stream_kernel<LM, GT, GLOBAL>;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -378,6 +433,22 @@ int launch_gt(const float* tau, const float* ssa, const float* g,
         dn, dir, scratch, ncol, nlay, G, kmin, tmin);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+template <bool LM, int GT>
+int launch_gt(const float* tau, const float* ssa, const float* g,
+              const float* mu0, const float* alb_dir, const float* alb_dif,
+              const float* inc_dir, const float* inc_dif, float* up,
+              float* dn, float* dir, float* scratch, int ncol, int nlay,
+              int G, int threads, float kmin, float tmin, void* stream)
+{
+    if (scratch)
+        return launch_branch<LM, GT, true>(
+            tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn,
+            dir, scratch, ncol, nlay, G, threads, kmin, tmin, stream);
+    return launch_branch<LM, GT, false>(
+        tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn, dir,
+        scratch, ncol, nlay, G, threads, kmin, tmin, stream);
 }
 
 template <bool LM>
@@ -409,8 +480,8 @@ int launch(const float* tau, const float* ssa, const float* g,
 
 // gt: g-points a block (32, 64 or 128; at most 8 tiles a column); threads:
 // threads a block (a multiple of 32, at least gt); scratch: null, or
-// ncol*ceil(G/gt) blocks of NSLOT*(nlay+1)*gt + 3*(nlay+1) floats for the
-// global-scratch branch.
+// ncol*ceil(G/gt) blocks of block_floats(nlay, gt, ceil(G/gt)) floats for
+// the global-scratch branch.
 extern "C" int rrtmgp_sw_2stream_f32(
     const float* tau, const float* ssa, const float* g, const float* mu0,
     const float* alb_dir, const float* alb_dif, const float* inc_dir,

@@ -42,8 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rrtmgp_gas_optics_interp_f32": (
         _P, _L, _L, _P, _L, _L, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _P),
+        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _P),
     "rrtmgp_interp_rows_f32": (
         _I, _P, _L, _L, _P, _I, _P, _P, _P, _P, _L, _L, _P, _I, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
@@ -85,36 +85,37 @@ def _nvcc() -> str:
     return path
 
 
-def _source_hash(sources, flags) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
-    h.update(" ".join(sources).encode())
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def compile_library(sources=SOURCES, flags=NVCC_FLAGS) -> dict:
-    """Compile ``sources`` of ``csrc/`` with ``flags`` into one shared
-    library under ``build/torch_kernels/<hash>/``, unless that hash already
-    has one.  Returns {"path", "seconds", "log", "cached"}; ``log`` holds
-    nvcc's ``-Xptxas -v`` report (registers, shared memory and spills of
-    every kernel)."""
-    out_dir = BUILD_ROOT / _source_hash(sources, flags)
+def build() -> dict:
+    """Compile the kernels if this source hash has no library yet.  Returns
+    {"path", "seconds", "log", "cached"}; ``log`` holds nvcc's ``-Xptxas -v``
+    report (registers, shared memory and spills of every kernel)."""
+    if _state["info"] is not None:
+        return _state["info"]
+    out_dir = BUILD_ROOT / _source_hash()
     lib_path = out_dir / "librrtmgp_kernels.so"
     log_path = out_dir / "build.log"
     if lib_path.exists():
-        return dict(path=str(lib_path), seconds=0.0, cached=True,
+        info = dict(path=str(lib_path), seconds=0.0, cached=True,
                     log=log_path.read_text() if log_path.exists() else "")
+        _state["info"] = info
+        return info
 
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         procs = []
-        for src in sources:
+        for src in SOURCES:
             obj = os.path.join(tmp, src.replace(".cu", ".o"))
-            cmd = [nvcc, *flags, "-I", str(CSRC), "-c", str(CSRC / src),
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
                    "-o", obj]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -138,34 +139,21 @@ def compile_library(sources=SOURCES, flags=NVCC_FLAGS) -> dict:
         log = "\n".join(logs)
         log_path.write_text(log)
         os.replace(tmp_lib, lib_path)
-    return dict(path=str(lib_path), seconds=time.perf_counter() - t0,
+    info = dict(path=str(lib_path), seconds=time.perf_counter() - t0,
                 cached=False, log=log)
-
-
-def build() -> dict:
-    """Compile the kernels if this source hash has no library yet (see
-    :func:`compile_library`)."""
-    if _state["info"] is None:
-        _state["info"] = compile_library()
-    return _state["info"]
-
-
-def load(path: str) -> ctypes.CDLL:
-    """Load a kernel library and declare the C signature of every entry
-    point it has."""
-    lib = ctypes.CDLL(path)
-    for name, args in SIGNATURES.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-    return lib
+    _state["info"] = info
+    return info
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     if _state["lib"] is None:
-        _state["lib"] = load(build()["path"])
+        lib = ctypes.CDLL(build()["path"])
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        _state["lib"] = lib
     return _state["lib"]
 
 

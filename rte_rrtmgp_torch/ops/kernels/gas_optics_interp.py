@@ -46,9 +46,9 @@ def smem_words(tc: int, G: int, F: int, nspec: int, nent: int) -> int:
     """32-bit words of shared memory a block holds (``smem_words`` of the
     CUDA source): per cell itropo/jtemp/jpress, jeta and col_mix (2F
     each), fmajor (8F), fminor (4F) and the minor scalings (nspec); the
-    chunk's g-point flavors (2G), quad flavors (2*ceil(G/4)), entry offsets
-    (G+1) and entries (4 each)."""
-    return tc * (3 + 16 * F + nspec) + 2 * G + 2 * ((G + 3) // 4) + G + 1 \
+    chunk's g-point flavors (2G), quad flavors (2*ceil(G/4)), quad minor
+    marks (ceil(G/4)), entry offsets (G+1) and entries (4 each)."""
+    return tc * (3 + 16 * F + nspec) + 2 * G + 3 * ((G + 3) // 4) + G + 1 \
         + 4 * nent
 
 
@@ -72,13 +72,27 @@ def interp_geometry(C: int, L: int, G: int, F: int, nspec: int, nent: int,
     return InterpGeometry(axis, tc, threads, smem, -(-n_a // tc) * n_b)
 
 
+def _same_intervals(lists) -> bool:
+    """Four per-g entry lists with the same intervals and contributor
+    columns c..c+3 from a multiple of 4."""
+    if len(lists) != 4 or not lists[0]:
+        return False
+    if any(len(x) != len(lists[0]) for x in lists):
+        return False
+    return all(col % 4 == 0 and all(x[i] == (k, atm, col + v, f)
+                                    for v, x in enumerate(lists))
+               for i, (k, atm, col, f) in enumerate(lists[0]))
+
+
 @functools.lru_cache(maxsize=64)
 def _minor_entries(specs: tuple, G: int, device: torch.device):
     """Per-g lists of the minor intervals covering each g-point of a chunk:
     ``off`` (G+1,) int32 and ``ent`` (max(nent, 1), 4) int32 rows (interval
     index in ``specs`` order, atmosphere 0/1, contributor column, flavor),
     ordered by g and, within one g, by interval; ``nent`` the number of
-    rows."""
+    rows; ``quad`` (ceil(G/4),) int32, 1 where the four g-points 4q..4q+3
+    have the same intervals with contributor columns c..c+3 from a multiple
+    of 4 (the kernel then reads them four at a time)."""
     per_g = [[] for _ in range(G)]
     for k, (atm, s) in enumerate(specs):
         for gg in range(s.gpt_start, s.gpt_end):
@@ -89,9 +103,10 @@ def _minor_entries(specs: tuple, G: int, device: torch.device):
     for lst in per_g:
         rows.extend(lst)
         off.append(len(rows))
-    ent = torch.tensor(rows or [(0, 0, 0, 0)], dtype=torch.int32,
-                       device=device)
-    return torch.tensor(off, dtype=torch.int32, device=device), ent, len(rows)
+    quad = [int(_same_intervals(per_g[g:g + 4])) for g in range(0, G, 4)]
+    as_i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    return (as_i32(off), as_i32(rows or [(0, 0, 0, 0)]), len(rows),
+            as_i32(quad))
 
 
 def _check_extent(name: str, t: torch.Tensor) -> None:
@@ -138,7 +153,7 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
     require("sc", sc, dev, f32, (C, L, len(specs)))
 
     gflav = gas_optics.gpoint_flavor_tensor(kd.gpoint_flavor, dev)
-    ent_off, ent, nent = _minor_entries(specs, G, dev)
+    ent_off, ent, nent, quad = _minor_entries(specs, G, dev)
     geo = interp_geometry(C, L, G, F, len(specs), nent, TILE_CELLS, THREADS)
     out_a = torch.empty((C, L, G), dtype=f32, device=dev)
     out_b = torch.empty((C, L, G), dtype=f32, device=dev)
@@ -152,7 +167,8 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
         interp.itropo01.data_ptr(), interp.jeta0.data_ptr(),
         interp.col_mix.data_ptr(), interp.fminor.data_ptr(),
         interp.fmajor.data_ptr(), gflav.data_ptr(), sc.data_ptr(), len(specs),
-        ent_off.data_ptr(), ent.data_ptr(), nent, out_a.data_ptr(),
+        ent_off.data_ptr(), ent.data_ptr(), nent, quad.data_ptr(),
+        out_a.data_ptr(),
         out_b.data_ptr(), C, L, G, F, kd.ntemp, kd.neta, geo.axis, geo.tc,
         geo.threads, stream_handle(dev))
     _build.check(rc, "gas_optics_interp")

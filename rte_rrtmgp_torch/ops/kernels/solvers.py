@@ -19,7 +19,7 @@ None needs G to be a multiple of 32 or 128, nor ncol a multiple of 8.  An
 LW block is one column and its threads are the chunk's g-points, masked
 past G.  An SW block is one column and one tile of g-points, its working
 set in shared memory; :func:`sw_geometry` chooses the tile and whether the
-working set must live in a device scratch instead (only past ~440 layers).
+working set must live in a device scratch instead (only past ~340 layers).
 """
 
 from __future__ import annotations
@@ -34,9 +34,9 @@ from . import _build
 from ._checks import on_cpu, require, stream_handle
 
 MAX_G = 1024   # one thread per g-point in a block
-SW_SLOTS = 4   # (nlay+1) x gt slots of a block's working set (sw_2stream.cu)
+SW_SLOTS = 5   # (nlay+1) x gt slots of a block's working set (sw_2stream.cu)
 SW_TILE = 32   # g-points an SW block (measured: PERF.md §6, PR 3)
-SW_THREADS = 128
+SW_THREADS = 256
 SW_TILES = (32, 64, 128)
 MAX_CLUSTER = 8   # blocks of a portable thread block cluster
 
@@ -65,34 +65,33 @@ class SwGeometry:
                 f"{4 * self.scratch_floats} B scratch")
 
 
-def sw_block_floats(nlay: int, gt: int, slots: int = SW_SLOTS) -> int:
-    """Floats of an SW block's working set: ``slots`` slots of
-    (nlay+1) x gt, then the level partials of up, dn and dir."""
-    return slots * (nlay + 1) * gt + 3 * (nlay + 1)
+def sw_block_floats(nlay: int, gt: int, tiles: int) -> int:
+    """Floats of an SW block's working set (``block_floats`` of the CUDA
+    source): SW_SLOTS slots of (nlay+1) x gt, then the level partials of
+    up, dn and dir of each of the column's ``tiles`` tiles."""
+    return (SW_SLOTS * gt + 3 * tiles) * (nlay + 1)
 
 
 def sw_geometry(ncol: int, nlay: int, G: int, gt: int = SW_TILE,
-                threads: int = SW_THREADS,
-                slots: int = SW_SLOTS) -> SwGeometry:
+                threads: int = SW_THREADS) -> SwGeometry:
     """The preferred tile ``gt``, widened until a column takes at most
     :data:`MAX_CLUSTER` tiles, then narrowed (not below that) until the
     working set fits in shared memory.  Where it fits at no width, the
-    narrowest allowed tile keeps it in a device scratch: at G <= 256
-    (tile 32) from nlay = 443."""
+    narrowest allowed tile keeps it in a device scratch: with tile 32, from
+    nlay = 337 at G = 97..128 and from nlay = 356 at G <= 32."""
     if not 0 < G <= MAX_G:
         raise ValueError(f"sw_2stream: G={G} outside 1..{MAX_G}")
     narrowest = next(t for t in SW_TILES if -(-G // t) <= MAX_CLUSTER)
     gt = max(gt, narrowest)
+    floats = lambda t: sw_block_floats(nlay, t, -(-G // t))
     fits = [t for t in SW_TILES if narrowest <= t <= gt
-            and 4 * sw_block_floats(nlay, t, slots) <= _build.SMEM_PER_BLOCK]
+            and 4 * floats(t) <= _build.SMEM_PER_BLOCK]
     tile = fits[-1] if fits else narrowest
     tiles = -(-G // tile)
     threads = max(threads, tile)
     if fits:
-        return SwGeometry(tile, threads, tiles,
-                          4 * sw_block_floats(nlay, tile, slots), 0)
-    return SwGeometry(tile, threads, tiles, 0,
-                      ncol * tiles * sw_block_floats(nlay, tile, slots))
+        return SwGeometry(tile, threads, tiles, 4 * floats(tile), 0)
+    return SwGeometry(tile, threads, tiles, 0, ncol * tiles * floats(tile))
 
 
 def lw_sweep(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
@@ -224,7 +223,7 @@ def _sw_launch(name, plane, ncol, nlay, G, tau, ssa, g, mu0, sfc_alb_dir,
         require(pname, t, dev, f32, (ncol, G))
     if inc_flux_dif is not None:
         require("inc_flux_dif", inc_flux_dif, dev, f32, (ncol, G))
-    geo = sw_geometry(ncol, nlay, G, SW_TILE, SW_THREADS, SW_SLOTS)
+    geo = sw_geometry(ncol, nlay, G, SW_TILE, SW_THREADS)
     up, dn, fdir = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
     scratch = (torch.empty(geo.scratch_floats, dtype=f32, device=dev)
                if geo.scratch_floats else None)

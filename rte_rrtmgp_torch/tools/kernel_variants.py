@@ -3,9 +3,7 @@ flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,
 gpt_chunk 128, float32):
 
 * the SW two-stream solve (B3 ``sw_2stream``, B7 ``sw_2stream_lm``): g-tile
-  width x threads a block, in the library's c1/c0/a1/s1 form and in the
-  twin-order form (``csrc/sw_2stream.cu`` built with
-  ``-DRRTMGP_SW_TWIN_ORDER=1``);
+  width x threads a block;
 * the gas-optics interpolation (B1 ``gas_optics_interp``): cells a block x
   threads a block, in the default and the layer-major layout.
 
@@ -60,15 +58,6 @@ def patched(*triples):
             setattr(obj, name, value)
 
 
-@contextlib.contextmanager
-def library(lib):
-    """Route the wrappers' launches to ``lib`` (a kernel library)."""
-    from rte_rrtmgp_torch.ops.kernels import _build
-
-    with patched((_build, "_state", dict(_build._state, lib=lib))):
-        yield
-
-
 def record_step(run_step, args, targets):
     """The calls of one step to each (module, name) in ``targets``."""
     import torch
@@ -106,13 +95,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "?"
     print(card)
     dev = torch.device("cuda")
-    lib = _build.library()
-    twin_info = _build.compile_library(
-        ("sw_2stream.cu",), _build.NVCC_FLAGS + ("-DRRTMGP_SW_TWIN_ORDER=1",))
-    twin_lib = _build.load(twin_info["path"])
-    for line in twin_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build twin-order] {line.strip()}")
+    _build.library()
 
     tables = step.build_tables(GPT_PER_BAND, dtype=torch.float32, device=dev)
     arrs = step.atmos_arrays(NCOL, NLAY, seed=0)
@@ -126,42 +109,38 @@ def main() -> int:
         calls[layout] = record_step(run_step, args, targets)
     results = {}
 
-    # ---- SW two-stream: form x tile x threads ----
+    # ---- SW two-stream: tile x threads ----
     twins = {"sw_2stream": rte_sw.sw_2stream_plain,
              "sw_2stream_lm": rte_sw.sw_2stream_lm_plain}
     sw_recs = {"sw_2stream": calls["default"]["sw_2stream"],
                "sw_2stream_lm": calls["layer_major"]["sw_2stream_lm"]}
     refs = {name: [twins[name](*a, **kw) for a, kw in recs]
             for name, recs in sw_recs.items()}
-    for form, form_lib, slots in (("c1c0", lib, 4), ("twin", twin_lib, 5)):
-        for gt in k_solvers.SW_TILES:
-            for threads in (32, 64, 128, 256):
-                if threads < gt:
-                    continue
-                for name, recs in sw_recs.items():
-                    fn = getattr(k_solvers, name)
-                    with library(form_lib), patched(
-                            (k_solvers, "SW_TILE", gt),
-                            (k_solvers, "SW_THREADS", threads),
-                            (k_solvers, "SW_SLOTS", slots)):
-                        err, ms = 0.0, []
-                        for (a, kw), ref in zip(recs, refs[name]):
-                            got = fn(*a, **kw)
-                            for x, r in zip(got, ref):
-                                e = float((x - r).abs().max())
-                                if e > REL_TOL * float(r.abs().max()):
-                                    print(f"kernel_variants: FAIL {name} "
-                                          f"{form} gt {gt} threads {threads}: "
-                                          f"max abs err {e:.3e}",
-                                          file=sys.stderr)
-                                    return 1
-                                err = max(err, e)
-                            ms.append(cuda_ms(lambda: fn(*a, **kw)))
-                    key = f"{name} {form} gt={gt} threads={threads}"
-                    results[key] = sum(ms)
-                    print(f"[variant] {key}: ms/step {sum(ms):.4f} (per "
-                          f"launch {', '.join(f'{x:.4f}' for x in ms)}), "
-                          f"max abs err {err:.3e}")
+    for gt in k_solvers.SW_TILES:
+        for threads in (64, 128, 256, 512):
+            if threads < gt:
+                continue
+            for name, recs in sw_recs.items():
+                fn = getattr(k_solvers, name)
+                with patched((k_solvers, "SW_TILE", gt),
+                             (k_solvers, "SW_THREADS", threads)):
+                    err, ms = 0.0, []
+                    for (a, kw), ref in zip(recs, refs[name]):
+                        got = fn(*a, **kw)
+                        for x, r in zip(got, ref):
+                            e = float((x - r).abs().max())
+                            if e > REL_TOL * float(r.abs().max()):
+                                print(f"kernel_variants: FAIL {name} gt {gt} "
+                                      f"threads {threads}: max abs err "
+                                      f"{e:.3e}", file=sys.stderr)
+                                return 1
+                            err = max(err, e)
+                        ms.append(cuda_ms(lambda: fn(*a, **kw)))
+                key = f"{name} gt={gt} threads={threads}"
+                results[key] = sum(ms)
+                print(f"[variant] {key}: ms/step {sum(ms):.4f} (per launch "
+                      f"{', '.join(f'{x:.4f}' for x in ms)}), max abs err "
+                      f"{err:.3e}")
     del refs
 
     # ---- B1: cells a block x threads, both layouts ----

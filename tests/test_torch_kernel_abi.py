@@ -62,30 +62,35 @@ def test_entry_signature(name):
 
 def test_sw_slots_match_the_source():
     text = (_build.CSRC / "sw_2stream.cu").read_text()
-    m = re.search(r"constexpr int NSLOT = kTwinOrder \? (\d+) : (\d+);", text)
-    assert m and int(m.group(2)) == solvers.SW_SLOTS
+    m = re.search(r"constexpr int NSLOT = (\d+);", text)
+    assert m and int(m.group(1)) == solvers.SW_SLOTS
 
 
-@pytest.mark.parametrize("ncol, nlay, G, gt, tiles, smem", [
-    (2048, 72, 128, 32, 4, 4 * (4 * 73 * 32 + 3 * 73)),   # flagship LW/SW
-    (2048, 72, 96, 32, 3, 4 * (4 * 73 * 32 + 3 * 73)),    # last SW chunk
-    (8, 24, 128, 32, 4, 4 * (4 * 25 * 32 + 3 * 25)),      # golden case
-    (17, 1, 12, 32, 1, 4 * (4 * 2 * 32 + 3 * 2)),         # one layer
-    (5, 442, 12, 32, 1, 4 * (4 * 443 * 32 + 3 * 443)),    # deepest in smem
-    (5, 72, 300, 64, 5, 4 * (4 * 73 * 64 + 3 * 73)),      # 8-block clusters
-    (5, 72, 1024, 128, 8, 4 * (4 * 73 * 128 + 3 * 73)),
+def _sw_bytes(nlay, gt, tiles):
+    return 4 * (5 * gt + 3 * tiles) * (nlay + 1)
+
+
+@pytest.mark.parametrize("ncol, nlay, G, gt, tiles", [
+    (2048, 72, 128, 32, 4),    # flagship LW/SW chunk
+    (2048, 72, 96, 32, 3),     # last SW chunk
+    (8, 24, 128, 32, 4),       # golden case
+    (17, 1, 12, 32, 1),        # one layer
+    (5, 355, 12, 32, 1),       # deepest in shared memory at G <= 32
+    (5, 72, 300, 64, 5),       # the cluster limit widens the tile
+    (5, 72, 1024, 128, 8),
 ])
-def test_sw_geometry_shared(ncol, nlay, G, gt, tiles, smem):
+def test_sw_geometry_shared(ncol, nlay, G, gt, tiles):
     geo = solvers.sw_geometry(ncol, nlay, G)
     assert (geo.gt, geo.tiles, geo.smem_bytes, geo.scratch_floats,
-            geo.branch) == (gt, tiles, smem, 0, "shared")
+            geo.branch) == (gt, tiles, _sw_bytes(nlay, gt, tiles), 0,
+                            "shared")
     assert geo.smem_bytes <= _build.SMEM_PER_BLOCK
     assert geo.threads >= geo.gt and geo.threads % 32 == 0
 
 
-@pytest.mark.parametrize("G, deepest_shared", [(12, 442), (128, 442),
-                                                (256, 442), (300, 223),
-                                                (1024, 111)])
+@pytest.mark.parametrize("G, deepest_shared", [(12, 355), (128, 336),
+                                                (256, 314), (300, 172),
+                                                (1024, 86)])
 def test_sw_global_branch_threshold(G, deepest_shared):
     """The global-scratch branch starts one layer past the deepest column
     whose working set fits at the narrowest tile the cluster allows."""
@@ -93,24 +98,22 @@ def test_sw_global_branch_threshold(G, deepest_shared):
     geo = solvers.sw_geometry(3, deepest_shared + 1, G)
     assert geo.branch == "global" and geo.smem_bytes == 0
     assert geo.scratch_floats == 3 * geo.tiles * solvers.sw_block_floats(
-        deepest_shared + 1, geo.gt)
+        deepest_shared + 1, geo.gt, geo.tiles)
 
 
 def test_sw_geometry_narrows_and_widens():
     # A preferred wide tile narrows until the working set fits.
-    assert solvers.sw_geometry(4, 300, 128, gt=128).gt == 32
+    assert solvers.sw_geometry(4, 200, 128, gt=128).gt == 32
     assert solvers.sw_geometry(4, 72, 128, gt=128).gt == 128
     # Threads never fewer than the tile's g-points.
     assert solvers.sw_geometry(4, 72, 128, gt=128, threads=64).threads == 128
-    # Five slots (the twin-order variant) fit at 72 layers too.
-    assert solvers.sw_geometry(4, 72, 128, gt=128, slots=5).branch == "shared"
     for G in (0, solvers.MAX_G + 1):
         with pytest.raises(ValueError):
             solvers.sw_geometry(4, 72, G)
 
 
 def _words(tc, G, F, nspec, nent):
-    return (tc * (3 + 16 * F + nspec) + 2 * G + 2 * ((G + 3) // 4) + G + 1
+    return (tc * (3 + 16 * F + nspec) + 2 * G + 3 * ((G + 3) // 4) + G + 1
             + 4 * nent)
 
 
@@ -148,9 +151,29 @@ def test_minor_entries_order():
         **{**{fld: 0 for fld in MinorSpec._fields},
            "gpt_start": g0, "gpt_end": g1, "kminor_start": k0, "flavor": f})
     specs = ((0, spec(0, 2, 5, 3)), (1, spec(1, 3, 0, 4)))
-    off, ent, nent = b1._minor_entries(specs, 4, torch.device("cpu"))
+    off, ent, nent, quad = b1._minor_entries(specs, 4, torch.device("cpu"))
     assert off.tolist() == [0, 1, 3, 4, 4] and nent == 4
     assert ent.tolist() == [[0, 0, 5, 3], [0, 0, 6, 3], [1, 1, 0, 4],
                             [1, 1, 1, 4]]
-    off, ent, nent = b1._minor_entries((), 4, torch.device("cpu"))
+    assert quad.tolist() == [0]          # the four lists differ
+    off, ent, nent, quad = b1._minor_entries((), 4, torch.device("cpu"))
     assert off.tolist() == [0] * 5 and nent == 0 and ent.shape == (1, 4)
+    assert quad.tolist() == [0]          # no interval at all
+
+
+def test_minor_entries_quads():
+    """A quad reads its minor tables four at a time only where its four
+    g-points share their intervals, with contributor columns c..c+3 from a
+    multiple of 4."""
+    from rte_rrtmgp_torch.models.kdist import MinorSpec
+    import torch
+    spec = lambda g0, g1, k0: MinorSpec(
+        **{**{fld: 0 for fld in MinorSpec._fields},
+           "gpt_start": g0, "gpt_end": g1, "kminor_start": k0, "flavor": 2})
+    cpu = torch.device("cpu")
+    # g 0-7 in one interval from column 16; g 8-11 from column 2; g 12-13
+    # only half a quad.
+    specs = ((0, spec(0, 8, 16)), (1, spec(0, 8, 40)), (0, spec(8, 12, 2)),
+             (0, spec(12, 14, 0)))
+    _, _, _, quad = b1._minor_entries(specs, 15, cpu)
+    assert quad.tolist() == [1, 1, 0, 0]

@@ -91,10 +91,11 @@ def _sw_check(args, ncol, lm):
 
 @pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
 @pytest.mark.parametrize("tile", [32, 64, 128])
-@pytest.mark.parametrize("G", [12, 96, 128])
+@pytest.mark.parametrize("G", [12, 13, 96, 128])
 def test_sw_2stream_tiles(cuda, monkeypatch, G, tile, lm):
     """Every g-tile width (clusters of 1-4 blocks a column), an ncol that is
-    no multiple of anything, both layouts."""
+    no multiple of anything, G not a multiple of 4 (4-byte copies, ragged
+    level sums), both layouts."""
     monkeypatch.setattr(b23, "SW_TILE", tile)
     ncol, nlay = 19, 72
     _sw_check(_sw_args(cuda, np.random.default_rng(G + tile), ncol, nlay, G,

@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py            # ~2 minutes, builds the kernels
+    python3 chip_smoke.py            # under a minute, builds the kernels
     python3 chip_smoke.py --profile  # adds a torch.profiler table per layout
 
 The flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,

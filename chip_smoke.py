@@ -26,11 +26,11 @@ Phases (any failure ends the run with a nonzero exit):
    and its plain PyTorch twin on the card and held to ``REL_TOL`` of the
    output's largest value, then both are timed with CUDA events beside the
    computed bound (inputs read once and outputs written once; a kernel's
-   scratch is never counted).  Each line names the launch geometry the
-   wrapper chose (tile, branch) and the share of the bound reached.  The SW
-   wrappers' device allocation beyond their outputs is measured at the
-   flagship shape (no scratch at 72 layers: the working set stays in
-   shared memory).
+   staging and scratch are never counted).  Each line names the launch
+   geometry the wrapper chose (tile or g-points a thread, branch) and the
+   share of the bound reached.  The LW and SW wrappers' device allocation
+   beyond their outputs is measured at the flagship shape (no scratch at 72
+   layers: the working sets stay in shared memory).
 4. Full steps through ``step.make_step``, one layout at a time: launch
    counts of one step (the counts set to 0 just before, read just after,
    held to the exact counts of that layout), ms/step and col*gpt/s over a
@@ -319,13 +319,18 @@ def main(argv) -> int:
         return (f"N={N} G={G} corners={rows.shape[1]}", kern, plain, b,
                 N * G * rows_ops([rows], [cms]), "thread per (cell, g)")
 
+    def lw_geometry(C, L, G):
+        return k_solvers.lw_geometry(C, L, G, k_solvers.LW_GPT,
+                                     k_solvers.LW_COLS, k_solvers.LW_DEPTH,
+                                     k_solvers.LW_BATCH)
+
     def lw_call(a, kw):
         tau = a[0]
         C, L, G = tau.shape
         kern = lambda: k_solvers.lw_sweep(*a, **kw)
         plain = lambda: rte_lw.lw_sweep_plain(*a, kw["D"], kw["w"])
         return (f"G={G}", kern, plain, nbytes(*a) + 3 * C * (L + 1) * 4,
-                25 * C * L * G, "block per column, thread per g")
+                25 * C * L * G, lw_geometry(C, L, G).describe())
 
     def lw_lm_call(a, kw):
         tau, lev = a[0], a[2]
@@ -336,7 +341,7 @@ def main(argv) -> int:
         b = (nbytes(*[x for x in a if torch.is_tensor(x)], *lev)
              + 3 * (NL + C) * 4)
         return (f"G={G}", kern, plain, b, 25 * NL * G,
-                "block per column, thread per g")
+                lw_geometry(C, NL // C, G).describe())
 
     def sw_call(name, a, kw):
         tau = a[0]
@@ -395,6 +400,18 @@ def main(argv) -> int:
             tot["err"] = max(tot["err"], max(errs))
         return tot
 
+    def peak_extra(fn, out_floats):
+        """Device bytes ``fn`` allocates beyond ``out_floats`` floats of
+        outputs, measured."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - 4 * out_floats
+        del out
+        return extra
+
     def sw_scratch(name, a, kw):
         """Device bytes one SW launch allocates beyond its outputs (up, dn,
         dir and the returned dn + dir), measured, and the wrapper's own
@@ -402,16 +419,21 @@ def main(argv) -> int:
         C = a[3].shape[0]
         G = a[0].shape[-1]
         nlev = a[0].numel() // (C * G) + 1
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = getattr(k_solvers, name)(*a, **kw)
-        torch.cuda.synchronize()
-        extra = torch.cuda.max_memory_allocated() - base - 4 * C * nlev * 4
-        del out
+        extra = peak_extra(lambda: getattr(k_solvers, name)(*a, **kw),
+                           4 * C * nlev)
         geo = k_solvers.sw_geometry(C, nlev - 1, G, k_solvers.SW_TILE,
                                     k_solvers.SW_THREADS)
         return extra, 4 * geo.scratch_floats, C, nlev - 1, G
+
+    def lw_scratch(name, a, kw):
+        """Device bytes one LW launch allocates beyond its outputs (up, dn,
+        jac), measured, and the wrapper's own count."""
+        C = a[3].shape[0]
+        G = a[0].shape[-1]
+        L = a[0].numel() // (C * G)
+        extra = peak_extra(lambda: getattr(k_solvers, name)(*a, **kw),
+                           3 * C * (L + 1))
+        return extra, 4 * lw_geometry(C, L, G).scratch_floats, C, L, G
 
     per_layout = {}
     for layout, run_step in steps.items():
@@ -420,12 +442,16 @@ def main(argv) -> int:
         if got != expected[layout]:
             fail(f"{layout}: launches recorded in one step {got}, expected "
                  f"{expected[layout]}")
-        for name in ("sw_2stream", "sw_2stream_lm"):
+        for tag, name, scratch in (
+                ("sw", "sw_2stream", sw_scratch),
+                ("sw", "sw_2stream_lm", sw_scratch),
+                ("lw", "lw_sweep", lw_scratch),
+                ("lw", "lw_sweep_lm", lw_scratch)):
             if calls[name]:
-                extra, helper, C, L, G = sw_scratch(name, *calls[name][0])
-                print(f"[sw] {layout} {name} device scratch at {C}x{L} G={G}: "
-                      f"{helper} B by the wrapper's geometry, {extra} B "
-                      "allocated beyond the outputs (measured)")
+                extra, helper, C, L, G = scratch(name, *calls[name][0])
+                print(f"[{tag}] {layout} {name} device scratch at {C}x{L} "
+                      f"G={G}: {helper} B by the wrapper's geometry, {extra} "
+                      "B allocated beyond the outputs (measured)")
                 if helper or extra > 1 << 20:
                     fail(f"{name}: device scratch at {L} layers")
         per_layout[layout] = {name: replay(name, recs, layout)

@@ -17,32 +17,210 @@
 // dn and jac are scaled by pi*w and summed over g into (ncol, nlev).
 //
 // What bounds it on the H100: bytes.  tau, lay_src and lev_src (three
-// plane-sized inputs, 75.5 MB each at 2048x72x128) are read once per angle
-// at the least; the outputs are (ncol, nlev).
+// plane-sized inputs, 75.5 MB each at 2048x72x128) are read once per
+// angle at the least; the outputs are (ncol, nlev).
 //
-// Design: one block per column, one thread per g-point (whole warps;
-// threads past G are masked and add zeros).  Both layouts keep g
-// contiguous, so a warp's reads of one layer are 32 neighbouring floats
-// either way; the layout only changes the layer stride (G or ncol*G).  The
-// down sweep keeps the radiance in a register; the up sweep recomputes
-// trans and the source factor from tau rather than staging them
-// (re-reading three planes costs fewer bytes than writing and reading two
-// staged ones).  The sum over g at each level goes through warp shuffles
-// into shared memory, with no block barrier inside the sweep (reduce.cuh).
+// Design.  A column is ceil(G/GPT) threads in whole warps, each thread
+// owning GPT consecutive g-points (16- or 8-byte loads where G % GPT == 0
+// and the planes are aligned, masked scalar loads otherwise; g-points past
+// G read as zeros and add nothing).  The down sweep is the only pass that
+// reads the planes: it loads level 0 once, keeps the level above each
+// layer in a register, and runs DEPTH layers ahead of the recurrence in a
+// register ring (the loads do not depend on the radiance).  For every
+// (layer, g) it computes trans, the down source and the up source once and
+// stages (trans, src_up) in the column's working set, as the TPU kept
+// trans and fact in VMEM; the up sweep and the Jacobian read only that.
+// The sum over g of a level starts in registers (a thread's GPT values in
+// order), then a fixed butterfly of shuffles sums BATCH levels across the
+// warp at once (9 shuffles for 8 levels, where one warp sum a level takes
+// 40); lane 4k (BATCH 8) ends with level k's warp sum.  The warps of a
+// column meet once, after one block barrier, in a fixed order: dn
+// partials in a small per-warp array, up and jac partials in the staged
+// slots the up sweep has already consumed (no atomics, the same result on
+// every run).  A block takes COLS columns (runtime), each with its own
+// working set.
+//
+// The working set, column_floats(nlay, G, GPT) floats a column, lives in
+// shared memory (72.3 KB a column at 72 layers and G = 128: three columns
+// an SM).  Where one column exceeds the 227 KB a block may use (from 227
+// layers at G = 128, GPT = 4), the wrapper passes a device scratch of that
+// size per column and the same kernel keeps its working set there (a
+// template branch on the address space): shapes choose the branch.
 
 #include <cuda_runtime.h>
-
-#include "reduce.cuh"
+#include <stdint.h>
 
 namespace {
 
-struct LwLayer {
-    float trans, src;
+constexpr int STAGED = 2;   // floats staged a (layer, g): trans and src_up
+
+// g-slots of a column's staged rows (G rounded up to a thread's g-points)
+// and its warps.
+__host__ __device__ inline int gslots(int G, int gpt)
+{
+    return (G + gpt - 1) / gpt * gpt;
+}
+
+__host__ __device__ inline int col_warps(int G, int gpt)
+{
+    return ((G + gpt - 1) / gpt + 31) / 32;
+}
+
+// Floats of one column's working set: STAGED floats of every (layer,
+// g-slot), then each warp's level partials (dn at nlev levels, up and jac
+// at the surface), rounded up to a multiple of 4 (16-byte columns).
+__host__ __device__ inline long long column_floats(int nlay, int G, int gpt)
+{
+    const long long f = (long long)STAGED * nlay * gslots(G, gpt)
+                      + (long long)col_warps(G, gpt) * (nlay + 3);
+    return (f + 3) / 4 * 4;
+}
+
+struct LwArgs {
+    const float* tau;
+    const float* lay_src;
+    const float* lev0;    // column-major: the whole level plane
+    const float* inner;   // layer-major only: levels 1..nlay-1
+    const float* last;    // layer-major only: level nlay
+    const float* sfc_emis;
+    const float* sfc_src;
+    const float* sfc_src_jac;
+    const float* inc_flux;
+    float* up;
+    float* dn;
+    float* jac;
+    float* scratch;       // null unless the device-scratch branch
+    int ncol, nlay, G, cols;
+    float D, two_pi_w, scale, tau_thres;
 };
 
-// trans and the directional source of layer l for the sweep whose boundary
-// level is `lev` (the level below the layer going down, above going up).
-__device__ __forceinline__ LwLayer lw_layer(float tau, float lay, float lev,
+// Element offset of row (column c, layer l) and the row of level L, in
+// either layout.  Column-major: (ncol, nlay, G) layers, (ncol, nlev, G)
+// levels.  Layer-major: (nlay*ncol, G) layers; levels from the pieces
+// lev0 (ncol, G), inner ((nlay-1)*ncol, G) and last (ncol, G).
+template <bool LM>
+__device__ __forceinline__ long long lay_row(const LwArgs& a, long long c,
+                                             int l)
+{
+    return (LM ? ((long long)l * a.ncol + c) : (c * a.nlay + l)) * a.G;
+}
+
+template <bool LM>
+__device__ __forceinline__ const float* lev_row(const LwArgs& a, long long c,
+                                                int L)
+{
+    if (!LM) return a.lev0 + (c * (a.nlay + 1) + L) * a.G;
+    if (L == 0) return a.lev0 + c * a.G;
+    if (L == a.nlay) return a.last + c * a.G;
+    return a.inner + ((long long)(L - 1) * a.ncol + c) * a.G;
+}
+
+// A thread's GPT g-points of a row from g0: one vector load where `vec`
+// (G % GPT == 0 and the row aligned), masked scalar loads otherwise;
+// g-points at or past G read as zero.
+template <int GPT>
+__device__ __forceinline__ void load_g(float (&v)[GPT], const float* row,
+                                       int g0, int G, bool vec)
+{
+    if constexpr (GPT == 4) {
+        if (vec) {
+            const float4 x = g0 < G
+                ? __ldg(reinterpret_cast<const float4*>(row + g0))
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            v[0] = x.x;
+            v[1] = x.y;
+            v[2] = x.z;
+            v[3] = x.w;
+            return;
+        }
+    } else if constexpr (GPT == 2) {
+        if (vec) {
+            const float2 x = g0 < G
+                ? __ldg(reinterpret_cast<const float2*>(row + g0))
+                : make_float2(0.0f, 0.0f);
+            v[0] = x.x;
+            v[1] = x.y;
+            return;
+        }
+    }
+    #pragma unroll
+    for (int i = 0; i < GPT; ++i)
+        v[i] = g0 + i < G ? __ldg(row + g0 + i) : 0.0f;
+}
+
+// (trans, src) pairs of a thread's GPT g-points in a staged row: 2*GPT
+// consecutive floats, 8- or 16-byte aligned.
+template <int GPT>
+__device__ __forceinline__ void store_pairs(float* p, const float (&s)[2 * GPT])
+{
+    if constexpr (GPT == 1) {
+        *reinterpret_cast<float2*>(p) = make_float2(s[0], s[1]);
+    } else {
+        #pragma unroll
+        for (int i = 0; i < 2 * GPT; i += 4)
+            *reinterpret_cast<float4*>(p + i)
+                = make_float4(s[i], s[i + 1], s[i + 2], s[i + 3]);
+    }
+}
+
+template <int GPT>
+__device__ __forceinline__ void load_pairs(const float* p, float (&s)[2 * GPT])
+{
+    if constexpr (GPT == 1) {
+        const float2 x = *reinterpret_cast<const float2*>(p);
+        s[0] = x.x;
+        s[1] = x.y;
+    } else {
+        #pragma unroll
+        for (int i = 0; i < 2 * GPT; i += 4) {
+            const float4 x = *reinterpret_cast<const float4*>(p + i);
+            s[i] = x.x;
+            s[i + 1] = x.y;
+            s[i + 2] = x.z;
+            s[i + 3] = x.w;
+        }
+    }
+}
+
+// Sums N values of every lane over the warp: a fixed butterfly of
+// shuffles, after which lane L holds the sum of value L >> (5 - log2 N)
+// (each value's sum on 32/N lanes).  N = 1 is one warp sum.
+template <int N>
+__device__ __forceinline__ float batch_sum(float* v, int lane)
+{
+    static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0, "N: 1..32, 2^k");
+    int bit = 16;
+    #pragma unroll
+    for (int h = N / 2; h >= 1; h /= 2, bit /= 2) {
+        const bool upper = (lane & bit) != 0;
+        #pragma unroll
+        for (int i = 0; i < h; ++i) {
+            const float send = upper ? v[i] : v[i + h];
+            const float keep = upper ? v[i + h] : v[i];
+            v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+        }
+    }
+    float s = v[0];
+    #pragma unroll
+    for (; bit >= 1; bit /= 2)
+        s += __shfl_xor_sync(0xffffffffu, s, bit);
+    return s;
+}
+
+__host__ __device__ constexpr int log2i(int n)
+{
+    return n <= 1 ? 0 : 1 + log2i(n / 2);
+}
+
+struct LwLayer {
+    float trans, src_dn, src_up;
+};
+
+// trans and the two directional sources of one (layer, g): the down
+// source with the level below the layer, the up source with the level
+// above, in the twin's operation order.
+__device__ __forceinline__ LwLayer lw_layer(float tau, float lay,
+                                            float lev_top, float lev_bot,
                                             float D, float tau_thres)
 {
     const float t = tau * D;
@@ -56,136 +234,285 @@ __device__ __forceinline__ LwLayer lw_layer(float tau, float lay, float lev,
     }
     LwLayer r;
     r.trans = trans;
-    r.src = (1.0f - trans) * lev + 2.0f * fact * (lay - lev);
+    r.src_dn = (1.0f - trans) * lev_bot + 2.0f * fact * (lay - lev_bot);
+    r.src_up = (1.0f - trans) * lev_top + 2.0f * fact * (lay - lev_top);
     return r;
 }
 
-// Element offsets of a column's layer l and level l in either layout.
-// Column-major: (ncol, nlay, G) layers and one (ncol, nlev, G) level plane.
-// Layer-major: (nlay*ncol, G) layers; levels from the three pieces
-// lev0 (ncol, G), inner ((nlay-1)*ncol, G) and last (ncol, G).
-template <bool LM>
-struct LwPlanes {
-    const float* lev0;    // column-major: the whole level plane
-    const float* inner;   // layer-major only
-    const float* last;    // layer-major only
-    long long c;
-    int ncol, nlay, G, g;
-
-    __device__ __forceinline__ long long lay_at(int l) const
-    {
-        return (LM ? ((long long)l * ncol + c) : (c * nlay + l)) * G + g;
-    }
-    __device__ __forceinline__ float lev(int l) const
-    {
-        if (!LM) return lev0[(c * (nlay + 1) + l) * G + g];
-        if (l == 0) return lev0[c * G + g];
-        if (l == nlay) return last[c * G + g];
-        return inner[((long long)(l - 1) * ncol + c) * G + g];
-    }
-};
-
-template <bool LM>
-__global__ void lw_sweep_kernel(
-    const float* __restrict__ tau, const float* __restrict__ lay_src,
-    const float* __restrict__ lev0, const float* __restrict__ lev_inner,
-    const float* __restrict__ lev_last, const float* __restrict__ sfc_emis,
-    const float* __restrict__ sfc_src, const float* __restrict__ sfc_src_jac,
-    const float* __restrict__ inc_flux, float* __restrict__ up,
-    float* __restrict__ dn, float* __restrict__ jac, int ncol, int nlay,
-    int G, float D, float two_pi_w, float scale, float tau_thres)
+__device__ __forceinline__ float warp_sum(float v)
 {
-    extern __shared__ float part[];
-    const long long c = blockIdx.x;
-    const int g = threadIdx.x;
-    const bool active = g < G;
-    const int nlev = nlay + 1;
-    const int nwarp = blockDim.x >> 5;
-    const LwPlanes<LM> p{lev0, lev_inner, lev_last, c, ncol, nlay, G, g};
+    return batch_sum<1>(&v, 0);
+}
 
-    // --- downward sweep ---
-    float rad = active ? inc_flux[c * G + g] / two_pi_w : 0.0f;
-    rrtmgp::level_partial(part, 1, nwarp, nlev, 0, scale * rad);
-    for (int l = 0; l < nlay; ++l) {
-        if (active) {
-            const long long o = p.lay_at(l);
-            const LwLayer s = lw_layer(tau[o], lay_src[o], p.lev(l + 1), D,
-                                       tau_thres);
-            rad = s.trans * rad + s.src;
+template <bool LM, int GPT, int DEPTH, int BATCH, bool GLOBAL>
+__global__ void lw_sweep_kernel(const LwArgs a)
+{
+    static_assert(DEPTH % BATCH == 0, "a batch of levels within a chunk");
+    constexpr int LOGB = log2i(BATCH);
+    constexpr int WRITER = (32 >> LOGB) - 1;   // lane & WRITER == 0 writes
+    extern __shared__ __align__(16) float smem[];
+    const int G = a.G, nlay = a.nlay, nlev = nlay + 1;
+    const int nwarp = col_warps(G, GPT);
+    const int tpc = nwarp * 32;
+    const int cb = threadIdx.x / tpc;
+    const int t = threadIdx.x - cb * tpc;
+    const long long c = (long long)blockIdx.x * a.cols + cb;
+    const bool live = c < a.ncol;
+    const int lane = t & 31;
+    const int w = t >> 5;
+    const int g0 = t * GPT;
+    const bool active = g0 < G;
+    const int GS = gslots(G, GPT);
+    const long long cf = column_floats(nlay, G, GPT);
+    // The working set's address space is known at compile time, so the
+    // shared branch uses shared-memory loads and stores throughout.
+    float* const stage = GLOBAL ? a.scratch + (live ? c : 0) * cf
+                                : smem + cb * cf;     // [nlay][GS][2]
+    float* const part = stage + (long long)STAGED * nlay * GS;
+    float* const wpart = part + w * (nlev + 2);       // [nwarp][nlev + 2]
+    // Warp v's spare pair in slot l (its lane 0's staged pair, dead once
+    // the up sweep has passed layer l): up and jac partials of level l.
+    auto spare = [&](int l, int v) {
+        return stage + ((long long)l * GS + 32 * v * GPT) * STAGED;
+    };
+
+    if (live) {
+        const bool vec = GPT > 1 && G % GPT == 0
+            && (((uintptr_t)a.tau | (uintptr_t)a.lay_src | (uintptr_t)a.lev0
+                 | (uintptr_t)a.inner | (uintptr_t)a.last)
+                & (4 * GPT - 1)) == 0;
+        const long long cg = c * G;
+        const float scale = a.scale;
+
+        // --- downward sweep ---
+        float rad[GPT], levp[GPT];
+        load_g<GPT>(rad, a.inc_flux + cg, g0, G, false);
+        float s0 = 0.0f;
+        #pragma unroll
+        for (int i = 0; i < GPT; ++i) {
+            rad[i] = rad[i] / a.two_pi_w;
+            s0 += scale * rad[i];
         }
-        rrtmgp::level_partial(part, 1, nwarp, nlev, l + 1, scale * rad);
-    }
+        s0 = warp_sum(s0);
+        if (lane == 0) wpart[0] = s0;
+        load_g<GPT>(levp, lev_row<LM>(a, c, 0), g0, G, vec);
 
-    // --- surface reflection + emission ---
-    float u = 0.0f, j = 0.0f;
-    if (active) {
-        const float emis = sfc_emis[c * G + g];
-        u = rad * (1.0f - emis) + emis * sfc_src[c * G + g];
-        j = emis * sfc_src_jac[c * G + g];
-    }
-    rrtmgp::level_partial(part, 0, nwarp, nlev, nlay, scale * u);
-    rrtmgp::level_partial(part, 2, nwarp, nlev, nlay, scale * j);
+        float rt[DEPTH][GPT], rl[DEPTH][GPT], rv[DEPTH][GPT];
+        auto load_layer = [&](int l, float (&x)[GPT], float (&y)[GPT],
+                              float (&z)[GPT]) {
+            const long long o = lay_row<LM>(a, c, l);
+            load_g<GPT>(x, a.tau + o, g0, G, vec);
+            load_g<GPT>(y, a.lay_src + o, g0, G, vec);
+            load_g<GPT>(z, lev_row<LM>(a, c, l + 1), g0, G, vec);
+        };
+        // Layer l from its ring entry: the recurrence, the staged pair,
+        // and this thread's sum of scale*dn at level l+1.
+        auto down = [&](int l, const float (&x)[GPT], const float (&y)[GPT],
+                        const float (&z)[GPT]) {
+            float st[2 * GPT];
+            float s = 0.0f;
+            #pragma unroll
+            for (int i = 0; i < GPT; ++i) {
+                const LwLayer r = lw_layer(x[i], y[i], levp[i], z[i], a.D,
+                                           a.tau_thres);
+                rad[i] = r.trans * rad[i] + r.src_dn;
+                st[2 * i] = r.trans;
+                st[2 * i + 1] = r.src_up;
+                levp[i] = z[i];
+                s += scale * rad[i];
+            }
+            if (active)
+                store_pairs<GPT>(stage + ((long long)l * GS + g0) * STAGED, st);
+            return s;
+        };
+        auto put_dn = [&](int l0, float* s) {
+            #pragma unroll
+            for (int k = 0; k < DEPTH; k += BATCH) {
+                const float v = batch_sum<BATCH>(s + k, lane);
+                const int lev = l0 + 1 + k + (lane >> (5 - LOGB));
+                if ((lane & WRITER) == 0 && lev <= nlay) wpart[lev] = v;
+            }
+        };
 
-    // --- upward sweep with the Jacobian ---
-    for (int l = nlay - 1; l >= 0; --l) {
-        if (active) {
-            const long long o = p.lay_at(l);
-            const LwLayer s = lw_layer(tau[o], lay_src[o], p.lev(l), D,
-                                       tau_thres);
-            u = s.trans * u + s.src;
-            j = s.trans * j;
+        #pragma unroll
+        for (int k = 0; k < DEPTH; ++k)
+            if (k < nlay) load_layer(k, rt[k], rl[k], rv[k]);
+        int l0 = 0;
+        for (; l0 + DEPTH <= nlay; l0 += DEPTH) {
+            float s[DEPTH];
+            #pragma unroll
+            for (int k = 0; k < DEPTH; ++k) {
+                s[k] = down(l0 + k, rt[k], rl[k], rv[k]);
+                if (l0 + k + DEPTH < nlay)
+                    load_layer(l0 + k + DEPTH, rt[k], rl[k], rv[k]);
+            }
+            put_dn(l0, s);
         }
-        rrtmgp::level_partial(part, 0, nwarp, nlev, l, scale * u);
-        rrtmgp::level_partial(part, 2, nwarp, nlev, l, scale * j);
+        if (l0 < nlay) {
+            float s[DEPTH];
+            #pragma unroll
+            for (int k = 0; k < DEPTH; ++k)
+                s[k] = l0 + k < nlay ? down(l0 + k, rt[k], rl[k], rv[k])
+                                     : 0.0f;
+            put_dn(l0, s);
+        }
+
+        // --- surface reflection + emission ---
+        float u[GPT], j[GPT], emis[GPT], src[GPT], sjac[GPT];
+        load_g<GPT>(emis, a.sfc_emis + cg, g0, G, false);
+        load_g<GPT>(src, a.sfc_src + cg, g0, G, false);
+        load_g<GPT>(sjac, a.sfc_src_jac + cg, g0, G, false);
+        float su = 0.0f, sj = 0.0f;
+        #pragma unroll
+        for (int i = 0; i < GPT; ++i) {
+            u[i] = rad[i] * (1.0f - emis[i]) + emis[i] * src[i];
+            j[i] = emis[i] * sjac[i];
+            su += scale * u[i];
+            sj += scale * j[i];
+        }
+        su = warp_sum(su);
+        sj = warp_sum(sj);
+        if (lane == 0) {
+            wpart[nlev] = su;
+            wpart[nlev + 1] = sj;
+        }
+
+        // --- upward sweep with the Jacobian, from the staged pairs, one
+        // chunk of DEPTH layers at a time (the ragged chunk first) ---
+        auto up_chunk = [&](int c0) {
+            float p[DEPTH][2 * GPT];
+            #pragma unroll
+            for (int k = 0; k < DEPTH; ++k)
+                if (active && c0 + k < nlay)
+                    load_pairs<GPT>(stage + ((long long)(c0 + k) * GS + g0)
+                                                * STAGED, p[k]);
+            float vu[DEPTH], vj[DEPTH];
+            #pragma unroll
+            for (int k = DEPTH - 1; k >= 0; --k) {
+                vu[k] = 0.0f;
+                vj[k] = 0.0f;
+                if (active && c0 + k < nlay) {
+                    #pragma unroll
+                    for (int i = 0; i < GPT; ++i) {
+                        u[i] = p[k][2 * i] * u[i] + p[k][2 * i + 1];
+                        j[i] = p[k][2 * i] * j[i];
+                        vu[k] += scale * u[i];
+                        vj[k] += scale * j[i];
+                    }
+                }
+            }
+            __syncwarp();
+            #pragma unroll
+            for (int k = 0; k < DEPTH; k += BATCH) {
+                const float xu = batch_sum<BATCH>(vu + k, lane);
+                const float xj = batch_sum<BATCH>(vj + k, lane);
+                const int l = c0 + k + (lane >> (5 - LOGB));
+                if ((lane & WRITER) == 0 && l < nlay) {
+                    float* const q = spare(l, w);
+                    q[0] = xu;
+                    q[1] = xj;
+                }
+            }
+        };
+        const int lt = nlay / DEPTH * DEPTH;
+        if (lt < nlay) up_chunk(lt);
+        for (int c0 = lt - DEPTH; c0 >= 0; c0 -= DEPTH) up_chunk(c0);
     }
 
-    float* const out[3] = {up, dn, jac};
-    rrtmgp::write_levels(part, 3, nwarp, nlev, c, out);
+    // --- the column's warps meet: level sums in warp order ---
+    __syncthreads();
+    if (live) {
+        for (int lev = t; lev < nlev; lev += tpc) {
+            float sd = 0.0f, su = 0.0f, sj = 0.0f;
+            for (int v = 0; v < nwarp; ++v) {
+                const float* const wp = part + v * (nlev + 2);
+                sd += wp[lev];
+                if (lev < nlay) {
+                    const float* const q = spare(lev, v);
+                    su += q[0];
+                    sj += q[1];
+                } else {
+                    su += wp[nlev];
+                    sj += wp[nlev + 1];
+                }
+            }
+            const long long o = c * nlev + lev;
+            a.up[o] = su;
+            a.dn[o] = sd;
+            a.jac[o] = sj;
+        }
+    }
+}
+
+template <bool LM, int GPT, int DEPTH, int BATCH, bool GLOBAL>
+int launch_branch(const LwArgs& a, void* stream)
+{
+    const int threads = a.cols * col_warps(a.G, GPT) * 32;
+    if (a.cols < 1 || threads > 1024 || a.nlay < 1 || a.G < 1)
+        return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = GLOBAL ? 0
+        : sizeof(float) * (size_t)a.cols * column_floats(a.nlay, a.G, GPT);
+    auto kern = lw_sweep_kernel<LM, GPT, DEPTH, BATCH, GLOBAL>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (a.ncol <= 0) return (int)cudaGetLastError();
+    kern<<<(a.ncol + a.cols - 1) / a.cols, threads, smem,
+           (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <bool LM, int GPT, int DEPTH, int BATCH>
+int launch_cfg(const LwArgs& a, void* stream)
+{
+    return a.scratch ? launch_branch<LM, GPT, DEPTH, BATCH, true>(a, stream)
+                     : launch_branch<LM, GPT, DEPTH, BATCH, false>(a, stream);
 }
 
 template <bool LM>
-int launch(const float* tau, const float* lay_src, const float* lev0,
-           const float* lev_inner, const float* lev_last,
-           const float* sfc_emis, const float* sfc_src,
-           const float* sfc_src_jac, const float* inc_flux, float* up,
-           float* dn, float* jac, int ncol, int nlay, int G, float D,
-           float two_pi_w, float scale, float tau_thres, void* stream)
+int launch(const LwArgs& a, int gpt, int depth, int batch, void* stream)
 {
-    size_t smem = 0;
-    cudaError_t err = rrtmgp::partial_smem(lw_sweep_kernel<LM>, 3, G,
-                                           nlay + 1, &smem);
-    if (err != cudaSuccess) return (int)err;
-    if (ncol > 0)
-        lw_sweep_kernel<LM><<<ncol, rrtmgp::block_threads(G), smem,
-                              (cudaStream_t)stream>>>(
-            tau, lay_src, lev0, lev_inner, lev_last, sfc_emis, sfc_src,
-            sfc_src_jac, inc_flux, up, dn, jac, ncol, nlay, G, D, two_pi_w,
-            scale, tau_thres);
-    return (int)cudaGetLastError();
+#define LW_CFG(P, D, B)                                                      \
+    if (gpt == P && depth == D && batch == B)                                \
+        return launch_cfg<LM, P, D, B>(a, stream);
+    LW_CFG(1, 4, 4) LW_CFG(1, 8, 8) LW_CFG(1, 8, 1)
+    LW_CFG(2, 4, 4) LW_CFG(2, 8, 8) LW_CFG(2, 8, 1)
+    LW_CFG(4, 4, 4) LW_CFG(4, 8, 8) LW_CFG(4, 8, 1)
+#undef LW_CFG
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// scratch: null, or ncol * column_floats(nlay, G, gpt) floats for the
+// device-scratch branch; gpt: g-points a thread (1, 2, 4); depth: layers
+// loaded ahead (4, 8); batch: levels a butterfly sums at once (depth or
+// 1); cols: columns a block.
 extern "C" int rrtmgp_lw_sweep_f32(
     const float* tau, const float* lay_src, const float* lev_src,
     const float* sfc_emis, const float* sfc_src, const float* sfc_src_jac,
-    const float* inc_flux, float* up, float* dn, float* jac, int ncol,
-    int nlay, int G, float D, float two_pi_w, float scale, float tau_thres,
-    void* stream)
+    const float* inc_flux, float* up, float* dn, float* jac, float* scratch,
+    int ncol, int nlay, int G, int gpt, int depth, int batch, int cols,
+    float D, float two_pi_w, float scale, float tau_thres, void* stream)
 {
-    return launch<false>(tau, lay_src, lev_src, nullptr, nullptr, sfc_emis,
-                         sfc_src, sfc_src_jac, inc_flux, up, dn, jac, ncol,
-                         nlay, G, D, two_pi_w, scale, tau_thres, stream);
+    const LwArgs a{tau, lay_src, lev_src, nullptr, nullptr, sfc_emis,
+                   sfc_src, sfc_src_jac, inc_flux, up, dn, jac, scratch,
+                   ncol, nlay, G, cols, D, two_pi_w, scale, tau_thres};
+    return launch<false>(a, gpt, depth, batch, stream);
 }
 
 extern "C" int rrtmgp_lw_sweep_lm_f32(
     const float* tau, const float* lay_src, const float* lev0,
     const float* lev_inner, const float* lev_last, const float* sfc_emis,
     const float* sfc_src, const float* sfc_src_jac, const float* inc_flux,
-    float* up, float* dn, float* jac, int ncol, int nlay, int G, float D,
-    float two_pi_w, float scale, float tau_thres, void* stream)
+    float* up, float* dn, float* jac, float* scratch, int ncol, int nlay,
+    int G, int gpt, int depth, int batch, int cols, float D, float two_pi_w,
+    float scale, float tau_thres, void* stream)
 {
-    return launch<true>(tau, lay_src, lev0, lev_inner, lev_last, sfc_emis,
-                        sfc_src, sfc_src_jac, inc_flux, up, dn, jac, ncol,
-                        nlay, G, D, two_pi_w, scale, tau_thres, stream);
+    const LwArgs a{tau, lay_src, lev0, lev_inner, lev_last, sfc_emis,
+                   sfc_src, sfc_src_jac, inc_flux, up, dn, jac, scratch,
+                   ncol, nlay, G, cols, D, two_pi_w, scale, tau_thres};
+    return launch<true>(a, gpt, depth, batch, stream);
 }

@@ -16,8 +16,11 @@
   :func:`rte_rrtmgp_torch.ops.rte_sw.sw_2stream_lm_plain`.
 
 None needs G to be a multiple of 32 or 128, nor ncol a multiple of 8.  An
-LW block is one column and its threads are the chunk's g-points, masked
-past G.  An SW block is one column and one tile of g-points, its working
+LW block is ``cols`` columns, each ceil(G/gpt) threads of ``gpt``
+consecutive g-points, its staged (trans, src_up) working set in shared
+memory; :func:`lw_geometry` chooses the columns a block and whether the
+working set must live in a device scratch instead (from 227 layers at
+G = 128).  An SW block is one column and one tile of g-points, its working
 set in shared memory; :func:`sw_geometry` chooses the tile and whether the
 working set must live in a device scratch instead (only past ~340 layers).
 """
@@ -39,6 +42,11 @@ SW_TILE = 32   # g-points an SW block (measured: PERF.md §6, PR 3)
 SW_THREADS = 256
 SW_TILES = (32, 64, 128)
 MAX_CLUSTER = 8   # blocks of a portable thread block cluster
+LW_STAGED = 2     # floats staged a (layer, g): trans, src_up (lw_sweep.cu)
+LW_GPT = 4        # g-points a thread
+LW_DEPTH = 8      # layers a thread loads ahead of the recurrence
+LW_BATCH = 8      # levels one butterfly of shuffles sums at once
+LW_COLS = 1       # columns a block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +102,91 @@ def sw_geometry(ncol: int, nlay: int, G: int, gt: int = SW_TILE,
     return SwGeometry(tile, threads, tiles, 0, ncol * tiles * floats(tile))
 
 
+@dataclasses.dataclass(frozen=True)
+class LwGeometry:
+    """Launch geometry of one LW sweep: ``gpt`` g-points a thread,
+    ``depth`` layers loaded ahead, ``batch`` levels a butterfly sums,
+    ``cols`` columns and ``threads`` threads a block, ``smem_bytes`` of
+    shared memory a block, and ``scratch_floats`` of device scratch for the
+    whole launch (0 unless one column's working set does not fit in shared
+    memory: the device-scratch branch)."""
+
+    gpt: int
+    depth: int
+    batch: int
+    cols: int
+    threads: int
+    smem_bytes: int
+    scratch_floats: int
+
+    @property
+    def branch(self) -> str:
+        return "global" if self.scratch_floats else "shared"
+
+    def describe(self) -> str:
+        return (f"{self.gpt} g a thread, {self.cols} column(s) x "
+                f"{self.threads // self.cols} threads a block, depth "
+                f"{self.depth}, batch {self.batch}, {self.branch} branch, "
+                f"{self.smem_bytes} B smem, {4 * self.scratch_floats} B "
+                "scratch")
+
+
+def lw_column_floats(nlay: int, G: int, gpt: int) -> int:
+    """Floats of one column's LW working set (``column_floats`` of the CUDA
+    source): LW_STAGED floats of every (layer, g-slot), g rounded up to a
+    multiple of ``gpt``, then each warp's nlay+3 level partials, rounded up
+    to a multiple of 4."""
+    threads = _ceil(G, gpt)
+    f = LW_STAGED * nlay * threads * gpt + _ceil(threads, 32) * (nlay + 3)
+    return 4 * _ceil(f, 4)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lw_geometry(ncol: int, nlay: int, G: int, gpt: int = LW_GPT,
+                cols: int = LW_COLS, depth: int = LW_DEPTH,
+                batch: int = LW_BATCH) -> LwGeometry:
+    """``cols`` columns a block (fewer where a block's threads or shared
+    memory would not hold them), each ceil(G/gpt) threads in whole warps.
+    Where one column's working set exceeds the shared memory a block may
+    use, the same kernel keeps it in a device scratch of ncol columns: at
+    gpt 4 from nlay = 227 at G = 128, from nlay = 29 at G = 1024."""
+    if not 0 < G <= MAX_G:
+        raise ValueError(f"lw_sweep: G={G} outside 1..{MAX_G}")
+    if nlay < 1:
+        raise ValueError(f"lw_sweep: nlay={nlay}, needs at least one layer")
+    tpc = 32 * _ceil(_ceil(G, gpt), 32)   # threads a column
+    col_bytes = 4 * lw_column_floats(nlay, G, gpt)
+    if col_bytes > _build.SMEM_PER_BLOCK:
+        return LwGeometry(gpt, depth, batch, 1, tpc, 0,
+                          ncol * lw_column_floats(nlay, G, gpt))
+    cols = max(1, min(cols, 1024 // tpc, _build.SMEM_PER_BLOCK // col_bytes))
+    return LwGeometry(gpt, depth, batch, cols, cols * tpc, cols * col_bytes,
+                      0)
+
+
+def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
+    """Launch ``rrtmgp_<name>_f32`` on checked inputs: ``planes`` the
+    layer and level planes (three column-major, five layer-major), ``sfc``
+    the four (ncol, G) surface and boundary inputs."""
+    dev, f32 = planes[0].device, torch.float32
+    geo = lw_geometry(ncol, nlay, G, LW_GPT, LW_COLS, LW_DEPTH, LW_BATCH)
+    up, dn, jac = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
+    scratch = (torch.empty(geo.scratch_floats, dtype=f32, device=dev)
+               if geo.scratch_floats else None)
+    rc = getattr(_build.library(), f"rrtmgp_{name}_f32")(
+        *(t.data_ptr() for t in planes), *(t.data_ptr() for t in sfc),
+        up.data_ptr(), dn.data_ptr(), jac.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), ncol, nlay, G,
+        geo.gpt, geo.depth, geo.batch, geo.cols, *_lw_constants(D, w),
+        stream_handle(dev))
+    _build.check(rc, name)
+    _build.LAUNCHES[name] += 1
+    return up, dn, jac
+
+
 def lw_sweep(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
              inc_flux, *, D: float, w: float):
     """One Gauss angle of the LW no-scattering solve, summed over g.
@@ -110,16 +203,10 @@ def lw_sweep(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
     require("tau", tau, dev, f32, (ncol, nlay, G))
     require("lay_src", lay_src, dev, f32, (ncol, nlay, G))
     require("lev_src", lev_src, dev, f32, (ncol, nlay + 1, G))
-    _require_lw_sfc(dev, ncol, G, sfc_emis, sfc_src, sfc_src_jac, inc_flux)
-    up, dn, jac = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
-    rc = _build.library().rrtmgp_lw_sweep_f32(
-        tau.data_ptr(), lay_src.data_ptr(), lev_src.data_ptr(),
-        sfc_emis.data_ptr(), sfc_src.data_ptr(), sfc_src_jac.data_ptr(),
-        inc_flux.data_ptr(), up.data_ptr(), dn.data_ptr(), jac.data_ptr(),
-        ncol, nlay, G, *_lw_constants(D, w), stream_handle(dev))
-    _build.check(rc, "lw_sweep")
-    _build.LAUNCHES["lw_sweep"] += 1
-    return up, dn, jac
+    sfc = (sfc_emis, sfc_src, sfc_src_jac, inc_flux)
+    _require_lw_sfc(dev, ncol, G, *sfc)
+    return _lw_launch("lw_sweep", ncol, nlay, G, (tau, lay_src, lev_src),
+                      sfc, D, w)
 
 
 def _require_lw_sfc(dev, ncol, G, *planes):
@@ -167,17 +254,10 @@ def lw_sweep_lm(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
     require("lev_src[0]", lev0, dev, f32, (ncol, G))
     require("lev_src[1]", inner, dev, f32, ((nlay - 1) * ncol, G))
     require("lev_src[2]", last, dev, f32, (ncol, G))
-    _require_lw_sfc(dev, ncol, G, sfc_emis, sfc_src, sfc_src_jac, inc_flux)
-    up, dn, jac = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
-    rc = _build.library().rrtmgp_lw_sweep_lm_f32(
-        tau.data_ptr(), lay_src.data_ptr(), lev0.data_ptr(),
-        inner.data_ptr(), last.data_ptr(), sfc_emis.data_ptr(),
-        sfc_src.data_ptr(), sfc_src_jac.data_ptr(), inc_flux.data_ptr(),
-        up.data_ptr(), dn.data_ptr(), jac.data_ptr(), ncol, nlay, G,
-        *_lw_constants(D, w), stream_handle(dev))
-    _build.check(rc, "lw_sweep_lm")
-    _build.LAUNCHES["lw_sweep_lm"] += 1
-    return up, dn, jac
+    sfc = (sfc_emis, sfc_src, sfc_src_jac, inc_flux)
+    _require_lw_sfc(dev, ncol, G, *sfc)
+    return _lw_launch("lw_sweep_lm", ncol, nlay, G,
+                      (tau, lay_src, lev0, inner, last), sfc, D, w)
 
 
 def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,

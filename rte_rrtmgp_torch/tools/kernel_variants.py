@@ -1,7 +1,9 @@
-"""Time the design variants of two kernels on the card, at the inputs of one
-flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,
+"""Time the design variants of three kernels on the card, at the inputs of
+one flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,
 gpt_chunk 128, float32):
 
+* the LW sweep (B2 ``lw_sweep``, B6 ``lw_sweep_lm``): g-points a thread x
+  layers loaded ahead x levels a butterfly sums x columns a block;
 * the SW two-stream solve (B3 ``sw_2stream``, B7 ``sw_2stream_lm``): g-tile
   width x threads a block;
 * the gas-optics interpolation (B1 ``gas_optics_interp``): cells a block x
@@ -9,9 +11,9 @@ gpt_chunk 128, float32):
 
 Run from the repository root on a machine with one NVIDIA card:
 
-    python3 -m rte_rrtmgp_torch.tools.kernel_variants
+    python3 -m rte_rrtmgp_torch.tools.kernel_variants [--kernels lw,sw,b1]
 
-Each variant is held to the plain twin first (SW within 1e-5 of the
+Each variant is held to the plain twin first (LW and SW within 1e-5 of the
 output's largest value; B1 bit for bit), then its launches of one step are
 timed with CUDA events (mean of 20 after 3 warm-up launches, summed over
 the step's launches).  The last line is one JSON object with every
@@ -20,6 +22,7 @@ variant's ms per step.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
@@ -28,6 +31,11 @@ import sys
 NCOL, NLAY = 2048, 72
 GPT_PER_BAND, GPT_CHUNK = 16, 128
 REL_TOL = 1e-5
+# LW (g-points a thread, layers ahead, levels a butterfly) with a kernel
+# instance in csrc/lw_sweep.cu, each at 1 and 3 columns a block.
+LW_CONFIGS = ((1, 4, 4), (1, 8, 8), (1, 8, 1), (2, 4, 4), (2, 8, 8),
+              (2, 8, 1), (4, 4, 4), (4, 8, 8), (4, 8, 1))
+LW_COLS = (1, 3)
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -76,15 +84,40 @@ def record_step(run_step, args, targets):
     return calls
 
 
-def main() -> int:
+def time_variant(key, fn, recs, refs, results):
+    """Hold ``fn`` to the twin's outputs on every recorded launch, then time
+    the launches; records the ms per step under ``key``.  False on a
+    disagreement."""
+    err, ms = 0.0, []
+    for (a, kw), ref in zip(recs, refs):
+        got = fn(*a, **kw)
+        for x, r in zip(got, ref):
+            e = float((x - r).abs().max())
+            if e > REL_TOL * float(r.abs().max()):
+                print(f"kernel_variants: FAIL {key}: max abs err {e:.3e}",
+                      file=sys.stderr)
+                return False
+            err = max(err, e)
+        ms.append(cuda_ms(lambda: fn(*a, **kw)))
+    results[key] = sum(ms)
+    print(f"[variant] {key}: ms/step {sum(ms):.4f} (per launch "
+          f"{', '.join(f'{x:.4f}' for x in ms)}), max abs err {err:.3e}")
+    return True
+
+
+def main(argv) -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", default="lw,sw,b1",
+                    help="comma-separated subset of lw, sw, b1")
+    which = set(ap.parse_args(argv).kernels.split(","))
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device is available", file=sys.stderr)
         return 2
     from rte_rrtmgp_torch import step
     from rte_rrtmgp_torch.ops import gas_optics as go
-    from rte_rrtmgp_torch.ops import rte_sw
+    from rte_rrtmgp_torch.ops import rte_lw, rte_sw
     from rte_rrtmgp_torch.ops.kernels import _build
     from rte_rrtmgp_torch.ops.kernels import gas_optics_interp as k_interp
     from rte_rrtmgp_torch.ops.kernels import solvers as k_solvers
@@ -101,7 +134,8 @@ def main() -> int:
     arrs = step.atmos_arrays(NCOL, NLAY, seed=0)
     args = [torch.as_tensor(arrs[k], device=dev) for k in step.ARG_NAMES]
     targets = [(k_interp, "gas_optics_interp"), (k_solvers, "sw_2stream"),
-               (k_solvers, "sw_2stream_lm")]
+               (k_solvers, "sw_2stream_lm"), (k_solvers, "lw_sweep"),
+               (k_solvers, "lw_sweep_lm")]
     calls = {}
     for layout, kw in (("default", {}), ("layer_major",
                                          dict(layer_major=True))):
@@ -109,42 +143,50 @@ def main() -> int:
         calls[layout] = record_step(run_step, args, targets)
     results = {}
 
+    # ---- LW sweep: g-points a thread x depth x batch x columns a block ----
+    lw_recs = {"lw_sweep": calls["default"]["lw_sweep"],
+               "lw_sweep_lm": calls["layer_major"]["lw_sweep_lm"]}
+    twins = {"lw_sweep": lambda *a, D, w: rte_lw.lw_sweep_plain(*a, D, w),
+             "lw_sweep_lm": lambda *a, ncol, D, w: rte_lw.lw_sweep_lm_plain(
+                 *a, ncol, D, w)}
+    refs = {name: [twins[name](*a, **kw) for a, kw in recs]
+            for name, recs in lw_recs.items()} if "lw" in which else {}
+    for (gpt, depth, batch), cols in ((c, n) for c in LW_CONFIGS
+                                      for n in LW_COLS):
+        for name in refs:
+            with patched((k_solvers, "LW_GPT", gpt),
+                         (k_solvers, "LW_DEPTH", depth),
+                         (k_solvers, "LW_BATCH", batch),
+                         (k_solvers, "LW_COLS", cols)):
+                if not time_variant(
+                        f"{name} gpt={gpt} depth={depth} batch={batch} "
+                        f"cols={cols}", getattr(k_solvers, name),
+                        lw_recs[name], refs[name], results):
+                    return 1
+    del refs
+
     # ---- SW two-stream: tile x threads ----
     twins = {"sw_2stream": rte_sw.sw_2stream_plain,
              "sw_2stream_lm": rte_sw.sw_2stream_lm_plain}
     sw_recs = {"sw_2stream": calls["default"]["sw_2stream"],
                "sw_2stream_lm": calls["layer_major"]["sw_2stream_lm"]}
     refs = {name: [twins[name](*a, **kw) for a, kw in recs]
-            for name, recs in sw_recs.items()}
+            for name, recs in sw_recs.items()} if "sw" in which else {}
     for gt in k_solvers.SW_TILES:
         for threads in (64, 128, 256, 512):
             if threads < gt:
                 continue
-            for name, recs in sw_recs.items():
-                fn = getattr(k_solvers, name)
+            for name in refs:
                 with patched((k_solvers, "SW_TILE", gt),
                              (k_solvers, "SW_THREADS", threads)):
-                    err, ms = 0.0, []
-                    for (a, kw), ref in zip(recs, refs[name]):
-                        got = fn(*a, **kw)
-                        for x, r in zip(got, ref):
-                            e = float((x - r).abs().max())
-                            if e > REL_TOL * float(r.abs().max()):
-                                print(f"kernel_variants: FAIL {name} gt {gt} "
-                                      f"threads {threads}: max abs err "
-                                      f"{e:.3e}", file=sys.stderr)
-                                return 1
-                            err = max(err, e)
-                        ms.append(cuda_ms(lambda: fn(*a, **kw)))
-                key = f"{name} gt={gt} threads={threads}"
-                results[key] = sum(ms)
-                print(f"[variant] {key}: ms/step {sum(ms):.4f} (per launch "
-                      f"{', '.join(f'{x:.4f}' for x in ms)}), max abs err "
-                      f"{err:.3e}")
+                    if not time_variant(f"{name} gt={gt} threads={threads}",
+                                        getattr(k_solvers, name),
+                                        sw_recs[name], refs[name], results):
+                        return 1
     del refs
 
     # ---- B1: cells a block x threads, both layouts ----
-    for layout in ("default", "layer_major"):
+    for layout in ("default", "layer_major") if "b1" in which else ():
         recs = calls[layout]["gas_optics_interp"]
         refs = [go.majmin_plain(a[0], a[1], a[2], kw["rayleigh"])
                 for a, kw in recs]
@@ -174,4 +216,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

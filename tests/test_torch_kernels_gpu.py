@@ -245,6 +245,78 @@ def test_lw_sweep_lm(cuda, G):
         _assert_close(a, b, name)
 
 
+def _lw_args(cuda, rng, ncol, nlay, G, lm, thin=False):
+    """LW sweep inputs, column-major or layer-major (level source in its
+    three pieces).  ``thin``: a third of tau zero and a third below the
+    series switch (tau*D < tau_thres)."""
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    lev = rng.uniform(10, 120, (ncol, nlay + 1, G))
+    tau = rng.uniform(0, 3, (ncol, nlay, G))
+    if thin:
+        pick = rng.integers(0, 3, tau.shape)
+        tau = np.where(pick == 0, 0.0,
+                       np.where(pick == 1, rng.uniform(0, 4e-3, tau.shape), tau))
+    planes = [t(tau), t(0.5 * (lev[:, 1:] + lev[:, :-1])), t(lev)]
+    if lm:
+        planes = [_lm(planes[0]), _lm(planes[1]), _lm(planes[2])]
+        lev_lm = planes[2]
+        planes[2] = (lev_lm[:ncol], lev_lm[ncol:nlay * ncol],
+                     lev_lm[nlay * ncol:])
+    return planes + [t(rng.uniform(0.8, 1, (ncol, G))),
+                     t(rng.uniform(50, 150, (ncol, G))),
+                     t(rng.uniform(0.5, 2, (ncol, G))),
+                     t(rng.uniform(0, 5, (ncol, G)))]
+
+
+def _lw_check(args, ncol, lm, D=1.66, w=1.0):
+    if lm:
+        got = b23.lw_sweep_lm(*args, ncol=ncol, D=D, w=w)
+        ref = rte_lw.lw_sweep_lm_plain(*args, ncol, D, w)
+    else:
+        got = b23.lw_sweep(*args, D=D, w=w)
+        ref = rte_lw.lw_sweep_plain(*args, D, w)
+    for name, a, b in zip(("up", "dn", "jac"), got, ref):
+        _assert_close(a, b, name)
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
+@pytest.mark.parametrize("cols", [1, 3])
+@pytest.mark.parametrize("G", [12, 13, 96, 128])
+def test_lw_sweep_shapes(cuda, monkeypatch, G, cols, lm):
+    """G with a ragged g tail and not a multiple of 4 (scalar loads),
+    1 and 3 columns a block with ncol no multiple of 3, nlay 37 (a ragged
+    chunk of layers), both layouts."""
+    monkeypatch.setattr(b23, "LW_COLS", cols)
+    ncol, nlay = 19, 37
+    _lw_check(_lw_args(cuda, np.random.default_rng(G + cols), ncol, nlay, G,
+                       lm), ncol, lm)
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
+@pytest.mark.parametrize("G, nlay, branch", [
+    (13, 1, "shared"), (128, 1, "shared"), (128, 300, "global"),
+    (1024, 40, "global")])
+def test_lw_sweep_depths(cuda, G, nlay, branch, lm):
+    """One layer, and columns deep or wide enough to take the
+    device-scratch branch."""
+    ncol = 5
+    assert b23.lw_geometry(ncol, nlay, G).branch == branch
+    _lw_check(_lw_args(cuda, np.random.default_rng(nlay + G), ncol, nlay, G,
+                       lm), ncol, lm)
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
+@pytest.mark.parametrize("angle", [0, 1, 2])
+def test_lw_sweep_thin_layers_and_angles(cuda, angle, lm):
+    """tau = 0 and tau below the series switch in one chunk, at the D and w
+    of each angle of a three-angle Gauss quadrature."""
+    ncol, nlay, G = 11, 72, 128
+    D = float(rte_lw.GAUSS_DS[2, angle])
+    w = float(rte_lw.GAUSS_WTS[2, angle])
+    _lw_check(_lw_args(cuda, np.random.default_rng(angle), ncol, nlay, G, lm,
+                       thin=True), ncol, lm, D, w)
+
+
 @pytest.mark.parametrize("G", [12, 96, 128])
 def test_sw_2stream_lm(cuda, G):
     rng = np.random.default_rng(G + 3)

@@ -320,9 +320,7 @@ def main(argv) -> int:
                 N * G * rows_ops([rows], [cms]), "thread per (cell, g)")
 
     def lw_geometry(C, L, G):
-        return k_solvers.lw_geometry(C, L, G, k_solvers.LW_GPT,
-                                     k_solvers.LW_COLS, k_solvers.LW_DEPTH,
-                                     k_solvers.LW_BATCH)
+        return k_solvers.lw_geometry(C, L, G, k_solvers.LW_GPT)
 
     def lw_call(a, kw):
         tau = a[0]

@@ -16,46 +16,63 @@
 // sweep carrying jac*trans (reference rte_solver_kernels.cu:35-193).  up,
 // dn and jac are scaled by pi*w and summed over g into (ncol, nlev).
 //
-// What bounds it on the H100: bytes.  tau, lay_src and lev_src (three
-// plane-sized inputs, 75.5 MB each at 2048x72x128) are read once per
-// angle at the least; the outputs are (ncol, nlev).
+// What bounds it on the H100.  By count, bytes: tau, lay_src and lev_src
+// (three plane-sized inputs, 75.5 MB each at 2048x72x128) are read once
+// per angle; the outputs are (ncol, nlev).  In practice, instruction issue
+// and latency (PERF.md §6): a (layer, g) costs 61 instructions in the down
+// sweep's loop (an exp, a reciprocal, both sources, the staging, the row
+// pointers) and 8 in the up sweep's, on the 12 warps an SM that shared
+// memory leaves room for (three columns of 128 g-points), and each layer's
+// chain of exp and reciprocal leaves issue slots idle.  Loads further
+// ahead (an L2 prefetch of the next chunks) did not help; the column-major
+// entry runs a few percent slower than the layer-major one on the same
+// work, with fewer instructions: its reads, not its issue, differ.
 //
-// Design.  A column is ceil(G/GPT) threads in whole warps, each thread
-// owning GPT consecutive g-points (16- or 8-byte loads where G % GPT == 0
-// and the planes are aligned, masked scalar loads otherwise; g-points past
-// G read as zeros and add nothing).  The down sweep is the only pass that
-// reads the planes: it loads level 0 once, keeps the level above each
-// layer in a register, and runs DEPTH layers ahead of the recurrence in a
-// register ring (the loads do not depend on the radiance).  For every
-// (layer, g) it computes trans, the down source and the up source once and
-// stages (trans, src_up) in the column's working set, as the TPU kept
-// trans and fact in VMEM; the up sweep and the Jacobian read only that.
-// The sum over g of a level starts in registers (a thread's GPT values in
-// order), then a fixed butterfly of shuffles sums BATCH levels across the
-// warp at once (9 shuffles for 8 levels, where one warp sum a level takes
-// 40); lane 4k (BATCH 8) ends with level k's warp sum.  The warps of a
-// column meet once, after one block barrier, in a fixed order: dn
-// partials in a small per-warp array, up and jac partials in the staged
-// slots the up sweep has already consumed (no atomics, the same result on
-// every run).  A block takes COLS columns (runtime), each with its own
-// working set.
+// Design.  A block is one column, ceil(G/GPT) threads in whole warps, each
+// thread owning GPT consecutive g-points (1 up to 256 g-points; 16- or
+// 8-byte loads where G % GPT == 0 and the planes are aligned, masked
+// scalar loads otherwise; g-points past G read as zeros).  The down sweep
+// is the only pass that reads the planes.  For every (layer, g) it
+// computes trans, the down source and the up source once and stages
+// (trans, src_up) in the column's working set, as the TPU kept trans and
+// fact in VMEM; the up sweep and the Jacobian read only that.  The loads
+// run a chunk ahead of the recurrence, which they do not depend on: one
+// chunk of layers in registers and the next one loading beside it (the
+// compiler waits for a loop's loads at its back edge, so each load has a
+// whole chunk of work to arrive in); row pointers advance a layer a load
+// and the loads past the last layer are off.  fact's quotient is rcp plus
+// one Newton step (within an ulp of the twin's division, without its
+// branch).  Each g-point's staged floats are one run of 2*nlay+3 (an odd
+// stride: the warp's lanes hit distinct banks), so a thread addresses its
+// own run with immediate offsets.  The up sweep overwrites each consumed
+// (trans, src_up) with that level's (up, jac) and puts the surface's in
+// the run's spare floats.  After one block barrier, the level sums of up
+// and jac run over g in order, one (level, quantity) a thread.  dn's sum
+// starts in registers, then a fixed butterfly of shuffles sums a chunk of
+// levels across the warp at once (9 shuffles for 8 levels, where one warp
+// sum a level takes 40), and the warps' partials meet in order.  No
+// atomics: the same result on every run.
 //
-// The working set, column_floats(nlay, G, GPT) floats a column, lives in
-// shared memory (72.3 KB a column at 72 layers and G = 128: three columns
-// an SM).  Where one column exceeds the 227 KB a block may use (from 227
-// layers at G = 128, GPT = 4), the wrapper passes a device scratch of that
-// size per column and the same kernel keeps its working set there (a
-// template branch on the address space): shapes choose the branch.
+// The working set, column_floats(nlay, G, GPT) floats, lives in shared
+// memory (74.6 KB a column at 72 layers and G = 128: three columns an SM).
+// Where it exceeds the 227 KB a block may use (from 223 layers at
+// G = 128), the wrapper passes a device scratch of that size per column
+// and the same kernel keeps it there (a template branch on the address
+// space, with the runs interleaved so that a warp's accesses coalesce):
+// shapes choose the branch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int STAGED = 2;   // floats staged a (layer, g): trans and src_up
 
-// g-slots of a column's staged rows (G rounded up to a thread's g-points)
-// and its warps.
+// g-slots of a column (G rounded up to a thread's g-points), its warps,
+// and the stride of a g-point's run: STAGED floats a layer, the surface's
+// up and jac, and one spare to make it odd.
 __host__ __device__ inline int gslots(int G, int gpt)
 {
     return (G + gpt - 1) / gpt * gpt;
@@ -66,13 +83,17 @@ __host__ __device__ inline int col_warps(int G, int gpt)
     return ((G + gpt - 1) / gpt + 31) / 32;
 }
 
-// Floats of one column's working set: STAGED floats of every (layer,
-// g-slot), then each warp's level partials (dn at nlev levels, up and jac
-// at the surface), rounded up to a multiple of 4 (16-byte columns).
+__host__ __device__ inline int run_stride(int nlay)
+{
+    return STAGED * nlay + 3;
+}
+
+// Floats of one column's working set: a run for every g-slot, then each
+// warp's dn partial at every level, rounded up to a multiple of 4.
 __host__ __device__ inline long long column_floats(int nlay, int G, int gpt)
 {
-    const long long f = (long long)STAGED * nlay * gslots(G, gpt)
-                      + (long long)col_warps(G, gpt) * (nlay + 3);
+    const long long f = (long long)gslots(G, gpt) * run_stride(nlay)
+                      + (long long)col_warps(G, gpt) * (nlay + 1);
     return (f + 3) / 4 * 4;
 }
 
@@ -90,41 +111,22 @@ struct LwArgs {
     float* dn;
     float* jac;
     float* scratch;       // null unless the device-scratch branch
-    int ncol, nlay, G, cols;
+    int ncol, nlay, G;
     float D, two_pi_w, scale, tau_thres;
 };
 
-// Element offset of row (column c, layer l) and the row of level L, in
-// either layout.  Column-major: (ncol, nlay, G) layers, (ncol, nlev, G)
-// levels.  Layer-major: (nlay*ncol, G) layers; levels from the pieces
-// lev0 (ncol, G), inner ((nlay-1)*ncol, G) and last (ncol, G).
-template <bool LM>
-__device__ __forceinline__ long long lay_row(const LwArgs& a, long long c,
-                                             int l)
-{
-    return (LM ? ((long long)l * a.ncol + c) : (c * a.nlay + l)) * a.G;
-}
-
-template <bool LM>
-__device__ __forceinline__ const float* lev_row(const LwArgs& a, long long c,
-                                                int L)
-{
-    if (!LM) return a.lev0 + (c * (a.nlay + 1) + L) * a.G;
-    if (L == 0) return a.lev0 + c * a.G;
-    if (L == a.nlay) return a.last + c * a.G;
-    return a.inner + ((long long)(L - 1) * a.ncol + c) * a.G;
-}
-
 // A thread's GPT g-points of a row from g0: one vector load where `vec`
 // (G % GPT == 0 and the row aligned), masked scalar loads otherwise;
-// g-points at or past G read as zero.
+// g-points at or past G, and every g-point where `in` is false, read as
+// zero.
 template <int GPT>
 __device__ __forceinline__ void load_g(float (&v)[GPT], const float* row,
-                                       int g0, int G, bool vec)
+                                       int g0, int G, bool vec,
+                                       bool in = true)
 {
     if constexpr (GPT == 4) {
         if (vec) {
-            const float4 x = g0 < G
+            const float4 x = in && g0 < G
                 ? __ldg(reinterpret_cast<const float4*>(row + g0))
                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             v[0] = x.x;
@@ -135,7 +137,7 @@ __device__ __forceinline__ void load_g(float (&v)[GPT], const float* row,
         }
     } else if constexpr (GPT == 2) {
         if (vec) {
-            const float2 x = g0 < G
+            const float2 x = in && g0 < G
                 ? __ldg(reinterpret_cast<const float2*>(row + g0))
                 : make_float2(0.0f, 0.0f);
             v[0] = x.x;
@@ -145,41 +147,7 @@ __device__ __forceinline__ void load_g(float (&v)[GPT], const float* row,
     }
     #pragma unroll
     for (int i = 0; i < GPT; ++i)
-        v[i] = g0 + i < G ? __ldg(row + g0 + i) : 0.0f;
-}
-
-// (trans, src) pairs of a thread's GPT g-points in a staged row: 2*GPT
-// consecutive floats, 8- or 16-byte aligned.
-template <int GPT>
-__device__ __forceinline__ void store_pairs(float* p, const float (&s)[2 * GPT])
-{
-    if constexpr (GPT == 1) {
-        *reinterpret_cast<float2*>(p) = make_float2(s[0], s[1]);
-    } else {
-        #pragma unroll
-        for (int i = 0; i < 2 * GPT; i += 4)
-            *reinterpret_cast<float4*>(p + i)
-                = make_float4(s[i], s[i + 1], s[i + 2], s[i + 3]);
-    }
-}
-
-template <int GPT>
-__device__ __forceinline__ void load_pairs(const float* p, float (&s)[2 * GPT])
-{
-    if constexpr (GPT == 1) {
-        const float2 x = *reinterpret_cast<const float2*>(p);
-        s[0] = x.x;
-        s[1] = x.y;
-    } else {
-        #pragma unroll
-        for (int i = 0; i < 2 * GPT; i += 4) {
-            const float4 x = *reinterpret_cast<const float4*>(p + i);
-            s[i] = x.x;
-            s[i + 1] = x.y;
-            s[i + 2] = x.z;
-            s[i + 3] = x.w;
-        }
-    }
+        v[i] = in && g0 + i < G ? __ldg(row + g0 + i) : 0.0f;
 }
 
 // Sums N values of every lane over the warp: a fixed butterfly of
@@ -207,9 +175,19 @@ __device__ __forceinline__ float batch_sum(float* v, int lane)
     return s;
 }
 
-__host__ __device__ constexpr int log2i(int n)
+__device__ __forceinline__ float warp_sum(float v)
 {
-    return n <= 1 ? 0 : 1 + log2i(n / 2);
+    return batch_sum<1>(&v, 0);
+}
+
+// 1/y for a finite normal y: the hardware approximation and one Newton
+// step, within 1 ulp of the IEEE quotient and without its range check and
+// branch.  Its argument here is tau*D > tau_thres.
+__device__ __forceinline__ float rcp(float y)
+{
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+    return fmaf(r, fmaf(-y, r, 1.0f), r);
 }
 
 struct LwLayer {
@@ -225,13 +203,9 @@ __device__ __forceinline__ LwLayer lw_layer(float tau, float lay,
 {
     const float t = tau * D;
     const float trans = expf(-t);
-    float fact;
-    if (t > tau_thres) {
-        const float safe = (t == 0.0f) ? 1.0f : t;
-        fact = (1.0f - trans) / safe - trans;
-    } else {
-        fact = t * (0.5f + t * ((float)(-1.0 / 3.0) + t * (float)(1.0 / 8.0)));
-    }
+    const float fact = t > tau_thres
+        ? (1.0f - trans) * rcp(t) - trans
+        : t * (0.5f + t * ((float)(-1.0 / 3.0) + t * (float)(1.0 / 8.0)));
     LwLayer r;
     r.trans = trans;
     r.src_dn = (1.0f - trans) * lev_bot + 2.0f * fact * (lay - lev_bot);
@@ -239,268 +213,260 @@ __device__ __forceinline__ LwLayer lw_layer(float tau, float lay,
     return r;
 }
 
-__device__ __forceinline__ float warp_sum(float v)
-{
-    return batch_sum<1>(&v, 0);
-}
-
-template <bool LM, int GPT, int DEPTH, int BATCH, bool GLOBAL>
+// CH: layers a chunk (the dn butterfly's levels, the loads' lead).
+template <bool LM, int GPT, int CH, bool GLOBAL>
 __global__ void lw_sweep_kernel(const LwArgs a)
 {
-    static_assert(DEPTH % BATCH == 0, "a batch of levels within a chunk");
-    constexpr int LOGB = log2i(BATCH);
-    constexpr int WRITER = (32 >> LOGB) - 1;   // lane & WRITER == 0 writes
+    constexpr int LOGC = CH == 8 ? 3 : CH == 4 ? 2 : -1;
+    static_assert(LOGC > 0, "a chunk is 4 or 8 layers");
+    constexpr int WRITER = (32 >> LOGC) - 1;   // lane & WRITER == 0 writes
     extern __shared__ __align__(16) float smem[];
     const int G = a.G, nlay = a.nlay, nlev = nlay + 1;
-    const int nwarp = col_warps(G, GPT);
-    const int tpc = nwarp * 32;
-    const int cb = threadIdx.x / tpc;
-    const int t = threadIdx.x - cb * tpc;
-    const long long c = (long long)blockIdx.x * a.cols + cb;
-    const bool live = c < a.ncol;
+    const long long c = blockIdx.x;
+    const int t = threadIdx.x;
+    const int tpc = blockDim.x;
     const int lane = t & 31;
     const int w = t >> 5;
     const int g0 = t * GPT;
     const bool active = g0 < G;
     const int GS = gslots(G, GPT);
-    const long long cf = column_floats(nlay, G, GPT);
+    const int S = run_stride(nlay);
     // The working set's address space is known at compile time, so the
     // shared branch uses shared-memory loads and stores throughout.
-    float* const stage = GLOBAL ? a.scratch + (live ? c : 0) * cf
-                                : smem + cb * cf;     // [nlay][GS][2]
-    float* const part = stage + (long long)STAGED * nlay * GS;
-    float* const wpart = part + w * (nlev + 2);       // [nwarp][nlev + 2]
-    // Warp v's spare pair in slot l (its lane 0's staged pair, dead once
-    // the up sweep has passed layer l): up and jac partials of level l.
-    auto spare = [&](int l, int v) {
-        return stage + ((long long)l * GS + 32 * v * GPT) * STAGED;
+    float* const stage = GLOBAL ? a.scratch + c * column_floats(nlay, G, GPT)
+                                : smem;
+    float* const part = stage + (long long)GS * S;   // [nwarp][nlev] dn
+    // Float j of g-point g's run: contiguous runs in shared memory;
+    // interleaved (run j of every g-point together) in the device scratch,
+    // where a warp's accesses then coalesce.
+    auto at = [&](int g, int j) -> float& {
+        return GLOBAL ? stage[(long long)j * GS + g] : stage[g * S + j];
     };
 
-    if (live) {
-        const bool vec = GPT > 1 && G % GPT == 0
-            && (((uintptr_t)a.tau | (uintptr_t)a.lay_src | (uintptr_t)a.lev0
-                 | (uintptr_t)a.inner | (uintptr_t)a.last)
-                & (4 * GPT - 1)) == 0;
-        const long long cg = c * G;
-        const float scale = a.scale;
+    const bool vec = GPT > 1 && G % GPT == 0
+        && (((uintptr_t)a.tau | (uintptr_t)a.lay_src | (uintptr_t)a.lev0
+             | (uintptr_t)a.inner | (uintptr_t)a.last)
+            & (4 * GPT - 1)) == 0;
+    const long long cg = c * G;
 
-        // --- downward sweep ---
-        float rad[GPT], levp[GPT];
-        load_g<GPT>(rad, a.inc_flux + cg, g0, G, false);
-        float s0 = 0.0f;
+    // --- downward sweep ---
+    float rad[GPT], levp[GPT];
+    load_g<GPT>(rad, a.inc_flux + cg, g0, G, false);
+    float s0 = 0.0f;
+    #pragma unroll
+    for (int i = 0; i < GPT; ++i) {
+        rad[i] = rad[i] / a.two_pi_w;
+        s0 += rad[i];
+    }
+    s0 = warp_sum(s0);
+    if (lane == 0) part[w * nlev] = s0;
+
+    // The rows of the next layer to load: tau and lay_src, and the level
+    // below it (layer-major: a row of the inner levels, or the last level's
+    // row for the last layer), advanced one layer a load.  Past the last
+    // layer the loads are off and read as zero.
+    const long long ls = LM ? (long long)a.ncol * G : G;
+    const float* pt = a.tau + (LM ? cg : c * nlay * G);
+    const float* py = a.lay_src + (LM ? cg : c * nlay * G);
+    const float* pv = LM ? a.inner + cg : a.lev0 + (c * nlev + 1) * G;
+    const float* const levn = LM ? a.last + cg : nullptr;
+    int ln = 0;
+    load_g<GPT>(levp, LM ? a.lev0 + cg : a.lev0 + c * nlev * G, g0, G, vec);
+    auto load_layer = [&](float (&x)[GPT], float (&y)[GPT],
+                          float (&z)[GPT]) {
+        const bool in = ln < nlay;
+        load_g<GPT>(x, pt, g0, G, vec, in);
+        load_g<GPT>(y, py, g0, G, vec, in);
+        load_g<GPT>(z, LM && ln + 1 == nlay ? levn : pv, g0, G, vec, in);
+        pt += ls;
+        py += ls;
+        pv += ls;
+        ++ln;
+    };
+    // Layer l from its inputs: the recurrence, the staged pair, and this
+    // thread's sum of dn at level l+1.
+    auto down = [&](int l, const float (&x)[GPT], const float (&y)[GPT],
+                    const float (&z)[GPT]) {
+        float s = 0.0f;
         #pragma unroll
         for (int i = 0; i < GPT; ++i) {
-            rad[i] = rad[i] / a.two_pi_w;
-            s0 += scale * rad[i];
+            const LwLayer r = lw_layer(x[i], y[i], levp[i], z[i], a.D,
+                                       a.tau_thres);
+            rad[i] = r.trans * rad[i] + r.src_dn;
+            if (active) {
+                at(g0 + i, STAGED * l) = r.trans;
+                at(g0 + i, STAGED * l + 1) = r.src_up;
+            }
+            levp[i] = z[i];
+            s += rad[i];
         }
-        s0 = warp_sum(s0);
-        if (lane == 0) wpart[0] = s0;
-        load_g<GPT>(levp, lev_row<LM>(a, c, 0), g0, G, vec);
+        return s;
+    };
+    auto put_dn = [&](int l0, float* s) {
+        const float v = batch_sum<CH>(s, lane);
+        const int lev = l0 + 1 + (lane >> (5 - LOGC));
+        if ((lane & WRITER) == 0 && lev <= nlay) part[w * nlev + lev] = v;
+    };
 
-        float rt[DEPTH][GPT], rl[DEPTH][GPT], rv[DEPTH][GPT];
-        auto load_layer = [&](int l, float (&x)[GPT], float (&y)[GPT],
-                              float (&z)[GPT]) {
-            const long long o = lay_row<LM>(a, c, l);
-            load_g<GPT>(x, a.tau + o, g0, G, vec);
-            load_g<GPT>(y, a.lay_src + o, g0, G, vec);
-            load_g<GPT>(z, lev_row<LM>(a, c, l + 1), g0, G, vec);
-        };
-        // Layer l from its ring entry: the recurrence, the staged pair,
-        // and this thread's sum of scale*dn at level l+1.
-        auto down = [&](int l, const float (&x)[GPT], const float (&y)[GPT],
-                        const float (&z)[GPT]) {
-            float st[2 * GPT];
-            float s = 0.0f;
+    // One chunk's inputs in registers and the next chunk's loading beside
+    // them.
+    float ct[CH][GPT], cl[CH][GPT], cv[CH][GPT];   // this chunk
+    float nt[CH][GPT], nl[CH][GPT], nv[CH][GPT];   // the next one
+    #pragma unroll
+    for (int k = 0; k < CH; ++k) load_layer(ct[k], cl[k], cv[k]);
+    int l0 = 0;
+    for (; l0 + CH <= nlay; l0 += CH) {
+        #pragma unroll
+        for (int k = 0; k < CH; ++k) load_layer(nt[k], nl[k], nv[k]);
+        float s[CH];
+        #pragma unroll
+        for (int k = 0; k < CH; ++k) s[k] = down(l0 + k, ct[k], cl[k], cv[k]);
+        put_dn(l0, s);
+        #pragma unroll
+        for (int k = 0; k < CH; ++k) {
             #pragma unroll
             for (int i = 0; i < GPT; ++i) {
-                const LwLayer r = lw_layer(x[i], y[i], levp[i], z[i], a.D,
-                                           a.tau_thres);
-                rad[i] = r.trans * rad[i] + r.src_dn;
-                st[2 * i] = r.trans;
-                st[2 * i + 1] = r.src_up;
-                levp[i] = z[i];
-                s += scale * rad[i];
+                ct[k][i] = nt[k][i];
+                cl[k][i] = nl[k][i];
+                cv[k][i] = nv[k][i];
             }
-            if (active)
-                store_pairs<GPT>(stage + ((long long)l * GS + g0) * STAGED, st);
-            return s;
-        };
-        auto put_dn = [&](int l0, float* s) {
-            #pragma unroll
-            for (int k = 0; k < DEPTH; k += BATCH) {
-                const float v = batch_sum<BATCH>(s + k, lane);
-                const int lev = l0 + 1 + k + (lane >> (5 - LOGB));
-                if ((lane & WRITER) == 0 && lev <= nlay) wpart[lev] = v;
-            }
-        };
-
+        }
+    }
+    if (l0 < nlay) {
+        float s[CH];
         #pragma unroll
-        for (int k = 0; k < DEPTH; ++k)
-            if (k < nlay) load_layer(k, rt[k], rl[k], rv[k]);
-        int l0 = 0;
-        for (; l0 + DEPTH <= nlay; l0 += DEPTH) {
-            float s[DEPTH];
-            #pragma unroll
-            for (int k = 0; k < DEPTH; ++k) {
-                s[k] = down(l0 + k, rt[k], rl[k], rv[k]);
-                if (l0 + k + DEPTH < nlay)
-                    load_layer(l0 + k + DEPTH, rt[k], rl[k], rv[k]);
-            }
-            put_dn(l0, s);
-        }
-        if (l0 < nlay) {
-            float s[DEPTH];
-            #pragma unroll
-            for (int k = 0; k < DEPTH; ++k)
-                s[k] = l0 + k < nlay ? down(l0 + k, rt[k], rl[k], rv[k])
-                                     : 0.0f;
-            put_dn(l0, s);
-        }
+        for (int k = 0; k < CH; ++k)
+            s[k] = l0 + k < nlay ? down(l0 + k, ct[k], cl[k], cv[k]) : 0.0f;
+        put_dn(l0, s);
+    }
 
-        // --- surface reflection + emission ---
+    // --- surface reflection + emission, then the upward sweep with the
+    // Jacobian from the staged pairs, one chunk at a time (the ragged chunk
+    // first, the full ones without a branch): (up, jac) of level l replace
+    // the consumed (trans, src_up) of layer l. ---
+    if (active) {
         float u[GPT], j[GPT], emis[GPT], src[GPT], sjac[GPT];
         load_g<GPT>(emis, a.sfc_emis + cg, g0, G, false);
         load_g<GPT>(src, a.sfc_src + cg, g0, G, false);
         load_g<GPT>(sjac, a.sfc_src_jac + cg, g0, G, false);
-        float su = 0.0f, sj = 0.0f;
         #pragma unroll
         for (int i = 0; i < GPT; ++i) {
             u[i] = rad[i] * (1.0f - emis[i]) + emis[i] * src[i];
             j[i] = emis[i] * sjac[i];
-            su += scale * u[i];
-            sj += scale * j[i];
+            at(g0 + i, STAGED * nlay) = u[i];
+            at(g0 + i, STAGED * nlay + 1) = j[i];
         }
-        su = warp_sum(su);
-        sj = warp_sum(sj);
-        if (lane == 0) {
-            wpart[nlev] = su;
-            wpart[nlev + 1] = sj;
-        }
-
-        // --- upward sweep with the Jacobian, from the staged pairs, one
-        // chunk of DEPTH layers at a time (the ragged chunk first) ---
-        auto up_chunk = [&](int c0) {
-            float p[DEPTH][2 * GPT];
+        auto up_chunk = [&](int c0, auto full_chunk) {
+            constexpr bool full = decltype(full_chunk)::value;
+            float tr[CH][GPT], sr[CH][GPT];
             #pragma unroll
-            for (int k = 0; k < DEPTH; ++k)
-                if (active && c0 + k < nlay)
-                    load_pairs<GPT>(stage + ((long long)(c0 + k) * GS + g0)
-                                                * STAGED, p[k]);
-            float vu[DEPTH], vj[DEPTH];
-            #pragma unroll
-            for (int k = DEPTH - 1; k >= 0; --k) {
-                vu[k] = 0.0f;
-                vj[k] = 0.0f;
-                if (active && c0 + k < nlay) {
+            for (int k = 0; k < CH; ++k)
+                if (full || c0 + k < nlay) {
                     #pragma unroll
                     for (int i = 0; i < GPT; ++i) {
-                        u[i] = p[k][2 * i] * u[i] + p[k][2 * i + 1];
-                        j[i] = p[k][2 * i] * j[i];
-                        vu[k] += scale * u[i];
-                        vj[k] += scale * j[i];
+                        tr[k][i] = at(g0 + i, STAGED * (c0 + k));
+                        sr[k][i] = at(g0 + i, STAGED * (c0 + k) + 1);
                     }
                 }
-            }
-            __syncwarp();
             #pragma unroll
-            for (int k = 0; k < DEPTH; k += BATCH) {
-                const float xu = batch_sum<BATCH>(vu + k, lane);
-                const float xj = batch_sum<BATCH>(vj + k, lane);
-                const int l = c0 + k + (lane >> (5 - LOGB));
-                if ((lane & WRITER) == 0 && l < nlay) {
-                    float* const q = spare(l, w);
-                    q[0] = xu;
-                    q[1] = xj;
+            for (int k = CH - 1; k >= 0; --k)
+                if (full || c0 + k < nlay) {
+                    #pragma unroll
+                    for (int i = 0; i < GPT; ++i) {
+                        u[i] = tr[k][i] * u[i] + sr[k][i];
+                        j[i] = tr[k][i] * j[i];
+                        at(g0 + i, STAGED * (c0 + k)) = u[i];
+                        at(g0 + i, STAGED * (c0 + k) + 1) = j[i];
+                    }
                 }
-            }
         };
-        const int lt = nlay / DEPTH * DEPTH;
-        if (lt < nlay) up_chunk(lt);
-        for (int c0 = lt - DEPTH; c0 >= 0; c0 -= DEPTH) up_chunk(c0);
+        const int lt = nlay / CH * CH;
+        if (lt < nlay) up_chunk(lt, std::false_type{});
+        for (int c0 = lt - CH; c0 >= 0; c0 -= CH)
+            up_chunk(c0, std::true_type{});
     }
 
-    // --- the column's warps meet: level sums in warp order ---
+    // --- level sums in a fixed order, scaled by pi*w: up and jac over g
+    // (run float 2*lev + q is level lev's up, q = 0, or jac, q = 1; four
+    // interleaved partial sums), dn over the warps ---
     __syncthreads();
-    if (live) {
-        for (int lev = t; lev < nlev; lev += tpc) {
-            float sd = 0.0f, su = 0.0f, sj = 0.0f;
-            for (int v = 0; v < nwarp; ++v) {
-                const float* const wp = part + v * (nlev + 2);
-                sd += wp[lev];
-                if (lev < nlay) {
-                    const float* const q = spare(lev, v);
-                    su += q[0];
-                    sj += q[1];
-                } else {
-                    su += wp[nlev];
-                    sj += wp[nlev + 1];
-                }
-            }
-            const long long o = c * nlev + lev;
-            a.up[o] = su;
-            a.dn[o] = sd;
-            a.jac[o] = sj;
+    const long long o = c * nlev;
+    for (int jr = t; jr < STAGED * nlev; jr += tpc) {
+        float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        int g = 0;
+        for (; g + 4 <= G; g += 4) {
+            #pragma unroll
+            for (int q = 0; q < 4; ++q) p[q] += at(g + q, jr);
         }
+        for (; g < G; ++g) p[g & 3] += at(g, jr);
+        const float sum = (p[0] + p[1]) + (p[2] + p[3]);
+        (jr & 1 ? a.jac : a.up)[o + (jr >> 1)] = a.scale * sum;
+    }
+    for (int lev = t; lev < nlev; lev += tpc) {
+        float sd = 0.0f;
+        for (int v = 0; v < tpc / 32; ++v) sd += part[v * nlev + lev];
+        a.dn[o + lev] = a.scale * sd;
     }
 }
 
-template <bool LM, int GPT, int DEPTH, int BATCH, bool GLOBAL>
+template <bool LM, int GPT, int CH, bool GLOBAL>
 int launch_branch(const LwArgs& a, void* stream)
 {
-    const int threads = a.cols * col_warps(a.G, GPT) * 32;
-    if (a.cols < 1 || threads > 1024 || a.nlay < 1 || a.G < 1)
+    const int threads = col_warps(a.G, GPT) * 32;
+    if (threads > 1024 || a.nlay < 1 || a.G < 1)
         return (int)cudaErrorInvalidConfiguration;
     const size_t smem = GLOBAL ? 0
-        : sizeof(float) * (size_t)a.cols * column_floats(a.nlay, a.G, GPT);
-    auto kern = lw_sweep_kernel<LM, GPT, DEPTH, BATCH, GLOBAL>;
+        : sizeof(float) * (size_t)column_floats(a.nlay, a.G, GPT);
+    auto kern = lw_sweep_kernel<LM, GPT, CH, GLOBAL>;
     if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
+        // Room for as many blocks an SM as shared memory allows.
+        cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(
+                kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return (int)err;
     }
     if (a.ncol <= 0) return (int)cudaGetLastError();
-    kern<<<(a.ncol + a.cols - 1) / a.cols, threads, smem,
-           (cudaStream_t)stream>>>(a);
+    kern<<<a.ncol, threads, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-template <bool LM, int GPT, int DEPTH, int BATCH>
-int launch_cfg(const LwArgs& a, void* stream)
+template <bool LM, int GPT, int CH>
+int launch_gpt(const LwArgs& a, void* stream)
 {
-    return a.scratch ? launch_branch<LM, GPT, DEPTH, BATCH, true>(a, stream)
-                     : launch_branch<LM, GPT, DEPTH, BATCH, false>(a, stream);
+    return a.scratch ? launch_branch<LM, GPT, CH, true>(a, stream)
+                     : launch_branch<LM, GPT, CH, false>(a, stream);
 }
 
 template <bool LM>
-int launch(const LwArgs& a, int gpt, int depth, int batch, void* stream)
+int launch(const LwArgs& a, int gpt, void* stream)
 {
-#define LW_CFG(P, D, B)                                                      \
-    if (gpt == P && depth == D && batch == B)                                \
-        return launch_cfg<LM, P, D, B>(a, stream);
-    LW_CFG(1, 4, 4) LW_CFG(1, 8, 8) LW_CFG(1, 8, 1)
-    LW_CFG(2, 4, 4) LW_CFG(2, 8, 8) LW_CFG(2, 8, 1)
-    LW_CFG(4, 4, 4) LW_CFG(4, 8, 8) LW_CFG(4, 8, 1)
-#undef LW_CFG
-    return (int)cudaErrorInvalidValue;
+    switch (gpt) {
+    case 1: return launch_gpt<LM, 1, 8>(a, stream);
+    case 2: return launch_gpt<LM, 2, 8>(a, stream);
+    case 4: return launch_gpt<LM, 4, 4>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 // scratch: null, or ncol * column_floats(nlay, G, gpt) floats for the
-// device-scratch branch; gpt: g-points a thread (1, 2, 4); depth: layers
-// loaded ahead (4, 8); batch: levels a butterfly sums at once (depth or
-// 1); cols: columns a block.
+// device-scratch branch; gpt: g-points a thread (1, 2 or 4; a column's
+// threads, ceil(G/gpt) in whole warps, at most 1024).
 extern "C" int rrtmgp_lw_sweep_f32(
     const float* tau, const float* lay_src, const float* lev_src,
     const float* sfc_emis, const float* sfc_src, const float* sfc_src_jac,
     const float* inc_flux, float* up, float* dn, float* jac, float* scratch,
-    int ncol, int nlay, int G, int gpt, int depth, int batch, int cols,
-    float D, float two_pi_w, float scale, float tau_thres, void* stream)
+    int ncol, int nlay, int G, int gpt, float D, float two_pi_w, float scale,
+    float tau_thres, void* stream)
 {
     const LwArgs a{tau, lay_src, lev_src, nullptr, nullptr, sfc_emis,
                    sfc_src, sfc_src_jac, inc_flux, up, dn, jac, scratch,
-                   ncol, nlay, G, cols, D, two_pi_w, scale, tau_thres};
-    return launch<false>(a, gpt, depth, batch, stream);
+                   ncol, nlay, G, D, two_pi_w, scale, tau_thres};
+    return launch<false>(a, gpt, stream);
 }
 
 extern "C" int rrtmgp_lw_sweep_lm_f32(
@@ -508,11 +474,11 @@ extern "C" int rrtmgp_lw_sweep_lm_f32(
     const float* lev_inner, const float* lev_last, const float* sfc_emis,
     const float* sfc_src, const float* sfc_src_jac, const float* inc_flux,
     float* up, float* dn, float* jac, float* scratch, int ncol, int nlay,
-    int G, int gpt, int depth, int batch, int cols, float D, float two_pi_w,
-    float scale, float tau_thres, void* stream)
+    int G, int gpt, float D, float two_pi_w, float scale, float tau_thres,
+    void* stream)
 {
     const LwArgs a{tau, lay_src, lev0, lev_inner, lev_last, sfc_emis,
                    sfc_src, sfc_src_jac, inc_flux, up, dn, jac, scratch,
-                   ncol, nlay, G, cols, D, two_pi_w, scale, tau_thres};
-    return launch<true>(a, gpt, depth, batch, stream);
+                   ncol, nlay, G, D, two_pi_w, scale, tau_thres};
+    return launch<true>(a, gpt, stream);
 }

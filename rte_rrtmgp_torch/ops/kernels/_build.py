@@ -48,11 +48,11 @@ SIGNATURES = {
         _I, _P, _L, _L, _P, _I, _P, _P, _P, _P, _L, _L, _P, _I, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
     "rrtmgp_lw_sweep_f32": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _I, _F, _F, _F, _F, _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+        _F, _F, _P),
     "rrtmgp_lw_sweep_lm_f32": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        _I, _I, _I, _F, _F, _F, _F, _P),
+        _F, _F, _F, _F, _P),
     "rrtmgp_sw_2stream_f32": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _P),

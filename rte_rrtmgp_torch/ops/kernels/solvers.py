@@ -16,12 +16,12 @@
   :func:`rte_rrtmgp_torch.ops.rte_sw.sw_2stream_lm_plain`.
 
 None needs G to be a multiple of 32 or 128, nor ncol a multiple of 8.  An
-LW block is ``cols`` columns, each ceil(G/gpt) threads of ``gpt``
-consecutive g-points, its staged (trans, src_up) working set in shared
-memory; :func:`lw_geometry` chooses the columns a block and whether the
-working set must live in a device scratch instead (from 227 layers at
-G = 128).  An SW block is one column and one tile of g-points, its working
-set in shared memory; :func:`sw_geometry` chooses the tile and whether the
+LW block is one column, ceil(G/gpt) threads of ``gpt`` consecutive
+g-points, its staged (trans, src_up) working set in shared memory;
+:func:`lw_geometry` chooses the g-points a thread and whether the working
+set must live in a device scratch instead (from 223 layers at G = 128).
+An SW block is one column and one tile of g-points, its working set in
+shared memory; :func:`sw_geometry` chooses the tile and whether the
 working set must live in a device scratch instead (only past ~340 layers).
 """
 
@@ -43,10 +43,9 @@ SW_THREADS = 256
 SW_TILES = (32, 64, 128)
 MAX_CLUSTER = 8   # blocks of a portable thread block cluster
 LW_STAGED = 2     # floats staged a (layer, g): trans, src_up (lw_sweep.cu)
-LW_GPT = 4        # g-points a thread
-LW_DEPTH = 8      # layers a thread loads ahead of the recurrence
-LW_BATCH = 8      # levels one butterfly of shuffles sums at once
-LW_COLS = 1       # columns a block
+LW_GPT = 1        # g-points a thread (measured: PERF.md §6, PR 4)
+LW_CHUNKS = {1: 8, 2: 8, 4: 4}   # layers a chunk at each g-points a thread
+LW_MAX_THREADS = 256   # a column's threads: more g-points a thread past it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,16 +104,14 @@ def sw_geometry(ncol: int, nlay: int, G: int, gt: int = SW_TILE,
 @dataclasses.dataclass(frozen=True)
 class LwGeometry:
     """Launch geometry of one LW sweep: ``gpt`` g-points a thread,
-    ``depth`` layers loaded ahead, ``batch`` levels a butterfly sums,
-    ``cols`` columns and ``threads`` threads a block, ``smem_bytes`` of
-    shared memory a block, and ``scratch_floats`` of device scratch for the
-    whole launch (0 unless one column's working set does not fit in shared
-    memory: the device-scratch branch)."""
+    ``chunk`` layers a chunk (loaded one chunk ahead), ``threads`` threads
+    a block (one column), ``smem_bytes`` of shared memory a block, and
+    ``scratch_floats`` of device scratch for the whole launch (0 unless the
+    working set does not fit in shared memory: the device-scratch
+    branch)."""
 
     gpt: int
-    depth: int
-    batch: int
-    cols: int
+    chunk: int
     threads: int
     smem_bytes: int
     scratch_floats: int
@@ -124,20 +121,20 @@ class LwGeometry:
         return "global" if self.scratch_floats else "shared"
 
     def describe(self) -> str:
-        return (f"{self.gpt} g a thread, {self.cols} column(s) x "
-                f"{self.threads // self.cols} threads a block, depth "
-                f"{self.depth}, batch {self.batch}, {self.branch} branch, "
+        return (f"{self.gpt} g a thread, chunk {self.chunk}, "
+                f"{self.threads} threads a column, {self.branch} branch, "
                 f"{self.smem_bytes} B smem, {4 * self.scratch_floats} B "
                 "scratch")
 
 
 def lw_column_floats(nlay: int, G: int, gpt: int) -> int:
     """Floats of one column's LW working set (``column_floats`` of the CUDA
-    source): LW_STAGED floats of every (layer, g-slot), g rounded up to a
-    multiple of ``gpt``, then each warp's nlay+3 level partials, rounded up
-    to a multiple of 4."""
+    source): a run of LW_STAGED*nlay + 3 floats for each g-point (G rounded
+    up to a multiple of ``gpt``), then each warp's nlay+1 dn partials,
+    rounded up to a multiple of 4."""
     threads = _ceil(G, gpt)
-    f = LW_STAGED * nlay * threads * gpt + _ceil(threads, 32) * (nlay + 3)
+    f = (threads * gpt * (LW_STAGED * nlay + 3)
+         + _ceil(threads, 32) * (nlay + 1))
     return 4 * _ceil(f, 4)
 
 
@@ -145,26 +142,24 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def lw_geometry(ncol: int, nlay: int, G: int, gpt: int = LW_GPT,
-                cols: int = LW_COLS, depth: int = LW_DEPTH,
-                batch: int = LW_BATCH) -> LwGeometry:
-    """``cols`` columns a block (fewer where a block's threads or shared
-    memory would not hold them), each ceil(G/gpt) threads in whole warps.
-    Where one column's working set exceeds the shared memory a block may
-    use, the same kernel keeps it in a device scratch of ncol columns: at
-    gpt 4 from nlay = 227 at G = 128, from nlay = 29 at G = 1024."""
+def lw_geometry(ncol: int, nlay: int, G: int,
+                gpt: int = LW_GPT) -> LwGeometry:
+    """One column a block, ``gpt`` g-points a thread (doubled while a column
+    would take more than LW_MAX_THREADS threads).  Where the column's
+    working set exceeds the shared memory a block may use, the same kernel
+    keeps it in a device scratch of ncol columns: from nlay = 223 at
+    G = 128."""
     if not 0 < G <= MAX_G:
         raise ValueError(f"lw_sweep: G={G} outside 1..{MAX_G}")
     if nlay < 1:
         raise ValueError(f"lw_sweep: nlay={nlay}, needs at least one layer")
-    tpc = 32 * _ceil(_ceil(G, gpt), 32)   # threads a column
-    col_bytes = 4 * lw_column_floats(nlay, G, gpt)
-    if col_bytes > _build.SMEM_PER_BLOCK:
-        return LwGeometry(gpt, depth, batch, 1, tpc, 0,
-                          ncol * lw_column_floats(nlay, G, gpt))
-    cols = max(1, min(cols, 1024 // tpc, _build.SMEM_PER_BLOCK // col_bytes))
-    return LwGeometry(gpt, depth, batch, cols, cols * tpc, cols * col_bytes,
-                      0)
+    while _ceil(G, gpt) > LW_MAX_THREADS:
+        gpt *= 2
+    threads = 32 * _ceil(_ceil(G, gpt), 32)
+    floats = lw_column_floats(nlay, G, gpt)
+    if 4 * floats > _build.SMEM_PER_BLOCK:
+        return LwGeometry(gpt, LW_CHUNKS[gpt], threads, 0, ncol * floats)
+    return LwGeometry(gpt, LW_CHUNKS[gpt], threads, 4 * floats, 0)
 
 
 def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
@@ -172,7 +167,7 @@ def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
     layer and level planes (three column-major, five layer-major), ``sfc``
     the four (ncol, G) surface and boundary inputs."""
     dev, f32 = planes[0].device, torch.float32
-    geo = lw_geometry(ncol, nlay, G, LW_GPT, LW_COLS, LW_DEPTH, LW_BATCH)
+    geo = lw_geometry(ncol, nlay, G, LW_GPT)
     up, dn, jac = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
     scratch = (torch.empty(geo.scratch_floats, dtype=f32, device=dev)
                if geo.scratch_floats else None)
@@ -180,8 +175,7 @@ def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
         *(t.data_ptr() for t in planes), *(t.data_ptr() for t in sfc),
         up.data_ptr(), dn.data_ptr(), jac.data_ptr(),
         None if scratch is None else scratch.data_ptr(), ncol, nlay, G,
-        geo.gpt, geo.depth, geo.batch, geo.cols, *_lw_constants(D, w),
-        stream_handle(dev))
+        geo.gpt, *_lw_constants(D, w), stream_handle(dev))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     return up, dn, jac

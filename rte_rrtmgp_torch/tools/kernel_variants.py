@@ -2,8 +2,8 @@
 one flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,
 gpt_chunk 128, float32):
 
-* the LW sweep (B2 ``lw_sweep``, B6 ``lw_sweep_lm``): g-points a thread x
-  layers loaded ahead x levels a butterfly sums x columns a block;
+* the LW sweep (B2 ``lw_sweep``, B6 ``lw_sweep_lm``): g-points a thread
+  (with its chunk of layers);
 * the SW two-stream solve (B3 ``sw_2stream``, B7 ``sw_2stream_lm``): g-tile
   width x threads a block;
 * the gas-optics interpolation (B1 ``gas_optics_interp``): cells a block x
@@ -31,11 +31,6 @@ import sys
 NCOL, NLAY = 2048, 72
 GPT_PER_BAND, GPT_CHUNK = 16, 128
 REL_TOL = 1e-5
-# LW (g-points a thread, layers ahead, levels a butterfly) with a kernel
-# instance in csrc/lw_sweep.cu, each at 1 and 3 columns a block.
-LW_CONFIGS = ((1, 4, 4), (1, 8, 8), (1, 8, 1), (2, 4, 4), (2, 8, 8),
-              (2, 8, 1), (4, 4, 4), (4, 8, 8), (4, 8, 1))
-LW_COLS = (1, 3)
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -143,7 +138,7 @@ def main(argv) -> int:
         calls[layout] = record_step(run_step, args, targets)
     results = {}
 
-    # ---- LW sweep: g-points a thread x depth x batch x columns a block ----
+    # ---- LW sweep: g-points a thread ----
     lw_recs = {"lw_sweep": calls["default"]["lw_sweep"],
                "lw_sweep_lm": calls["layer_major"]["lw_sweep_lm"]}
     twins = {"lw_sweep": lambda *a, D, w: rte_lw.lw_sweep_plain(*a, D, w),
@@ -151,17 +146,13 @@ def main(argv) -> int:
                  *a, ncol, D, w)}
     refs = {name: [twins[name](*a, **kw) for a, kw in recs]
             for name, recs in lw_recs.items()} if "lw" in which else {}
-    for (gpt, depth, batch), cols in ((c, n) for c in LW_CONFIGS
-                                      for n in LW_COLS):
+    for gpt in k_solvers.LW_CHUNKS:
         for name in refs:
-            with patched((k_solvers, "LW_GPT", gpt),
-                         (k_solvers, "LW_DEPTH", depth),
-                         (k_solvers, "LW_BATCH", batch),
-                         (k_solvers, "LW_COLS", cols)):
+            with patched((k_solvers, "LW_GPT", gpt)):
                 if not time_variant(
-                        f"{name} gpt={gpt} depth={depth} batch={batch} "
-                        f"cols={cols}", getattr(k_solvers, name),
-                        lw_recs[name], refs[name], results):
+                        f"{name} gpt={gpt} chunk={k_solvers.LW_CHUNKS[gpt]}",
+                        getattr(k_solvers, name), lw_recs[name], refs[name],
+                        results):
                     return 1
     del refs
 

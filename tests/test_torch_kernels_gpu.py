@@ -280,15 +280,15 @@ def _lw_check(args, ncol, lm, D=1.66, w=1.0):
 
 
 @pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
-@pytest.mark.parametrize("cols", [1, 3])
+@pytest.mark.parametrize("gpt", [1, 2, 4])
 @pytest.mark.parametrize("G", [12, 13, 96, 128])
-def test_lw_sweep_shapes(cuda, monkeypatch, G, cols, lm):
-    """G with a ragged g tail and not a multiple of 4 (scalar loads),
-    1 and 3 columns a block with ncol no multiple of 3, nlay 37 (a ragged
-    chunk of layers), both layouts."""
-    monkeypatch.setattr(b23, "LW_COLS", cols)
+def test_lw_sweep_shapes(cuda, monkeypatch, G, gpt, lm):
+    """G with a ragged g tail and not a multiple of 4 (scalar loads), 1, 2
+    and 4 g-points a thread (chunks of 8 and 4 layers), nlay 37 (a ragged
+    chunk of layers), ncol 19 (one column a block), both layouts."""
+    monkeypatch.setattr(b23, "LW_GPT", gpt)
     ncol, nlay = 19, 37
-    _lw_check(_lw_args(cuda, np.random.default_rng(G + cols), ncol, nlay, G,
+    _lw_check(_lw_args(cuda, np.random.default_rng(G + gpt), ncol, nlay, G,
                        lm), ncol, lm)
 
 

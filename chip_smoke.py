@@ -27,7 +27,7 @@ Phases (any failure ends the run with a nonzero exit):
    output's largest value, then both are timed with CUDA events beside the
    computed bound (inputs read once and outputs written once; a kernel's
    staging and scratch are never counted).  Each line names the launch
-   geometry the wrapper chose (tile or g-points a thread, branch) and the
+   geometry the wrapper chose (tile or g-points a block, branch) and the
    share of the bound reached.  The LW and SW wrappers' device allocation
    beyond their outputs is measured at the flagship shape (no scratch at 72
    layers: the working sets stay in shared memory).
@@ -320,7 +320,7 @@ def main(argv) -> int:
                 N * G * rows_ops([rows], [cms]), "thread per (cell, g)")
 
     def lw_geometry(C, L, G):
-        return k_solvers.lw_geometry(C, L, G, k_solvers.LW_GPT)
+        return k_solvers.lw_geometry(C, L, G, k_solvers.LW_BLOCK_G)
 
     def lw_call(a, kw):
         tau = a[0]

@@ -22,78 +22,82 @@
 // and latency (PERF.md §6): a (layer, g) costs 61 instructions in the down
 // sweep's loop (an exp, a reciprocal, both sources, the staging, the row
 // pointers) and 8 in the up sweep's, on the 12 warps an SM that shared
-// memory leaves room for (three columns of 128 g-points), and each layer's
+// memory leaves room for (three blocks of 128 g-points), and each layer's
 // chain of exp and reciprocal leaves issue slots idle.  Loads further
 // ahead (an L2 prefetch of the next chunks) did not help; the column-major
 // entry runs a few percent slower than the layer-major one on the same
 // work, with fewer instructions: its reads, not its issue, differ.
 //
-// Design.  A block is one column, ceil(G/GPT) threads in whole warps, each
-// thread owning GPT consecutive g-points (1 up to 256 g-points; 16- or
-// 8-byte loads where G % GPT == 0 and the planes are aligned, masked
-// scalar loads otherwise; g-points past G read as zeros).  The down sweep
-// is the only pass that reads the planes.  For every (layer, g) it
-// computes trans, the down source and the up source once and stages
-// (trans, src_up) in the column's working set, as the TPU kept trans and
-// fact in VMEM; the up sweep and the Jacobian read only that.  The loads
-// run a chunk ahead of the recurrence, which they do not depend on: one
-// chunk of layers in registers and the next one loading beside it (the
-// compiler waits for a loop's loads at its back edge, so each load has a
-// whole chunk of work to arrive in); row pointers advance a layer a load
-// and the loads past the last layer are off.  fact's quotient is rcp plus
-// one Newton step (within an ulp of the twin's division, without its
+// Design.  A column is one thread block cluster of ceil(G/gb) blocks (at
+// most 8), each a slice of gb consecutive g-points, one g-point a thread
+// (threads past the slice's end are masked and add zeros).  The wrapper
+// chooses gb (128 by default; PERF.md §6): a wider chunk is split so that
+// every block's working set stays small enough for three blocks an SM.
+// The down sweep is the only pass that reads the planes.  For every
+// (layer, g) it computes trans, the down source and the up source once and
+// stages (trans, src_up) in the block's working set, as the TPU kept trans
+// and fact in VMEM; the up sweep and the Jacobian read only that.  The
+// loads run a chunk of CH layers ahead of the recurrence, which they do
+// not depend on: one chunk in registers and the next one loading beside it
+// (the compiler waits for a loop's loads at its back edge, so each load
+// has a whole chunk of work to arrive in); row pointers advance a layer a
+// load and the loads past the last layer are off.  fact's quotient is rcp
+// plus one Newton step (within an ulp of the twin's division, without its
 // branch).  Each g-point's staged floats are one run of 2*nlay+3 (an odd
 // stride: the warp's lanes hit distinct banks), so a thread addresses its
 // own run with immediate offsets.  The up sweep overwrites each consumed
 // (trans, src_up) with that level's (up, jac) and puts the surface's in
 // the run's spare floats.  After one block barrier, the level sums of up
-// and jac run over g in order, one (level, quantity) a thread.  dn's sum
-// starts in registers, then a fixed butterfly of shuffles sums a chunk of
-// levels across the warp at once (9 shuffles for 8 levels, where one warp
-// sum a level takes 40), and the warps' partials meet in order.  No
-// atomics: the same result on every run.
+// and jac run over the slice's g in order, one (level, quantity) a thread,
+// into the first g-point's run.  dn's sum starts in registers, then a
+// fixed butterfly of shuffles sums a chunk of levels across the warp at
+// once (9 shuffles for 8 levels, where one warp sum a level takes 40), and
+// the warps' partials meet in order in the first warp's row.  After one
+// cluster barrier the rank-0 block reads every block's sums (distributed
+// shared memory) and adds them in rank order; a second barrier keeps the
+// other blocks' shared memory alive until it has.  No atomics: the same
+// result on every run.
 //
-// The working set, column_floats(nlay, G, GPT) floats, lives in shared
-// memory (74.6 KB a column at 72 layers and G = 128: three columns an SM).
-// Where it exceeds the 227 KB a block may use (from 223 layers at
-// G = 128), the wrapper passes a device scratch of that size per column
-// and the same kernel keeps it there (a template branch on the address
-// space, with the runs interleaved so that a warp's accesses coalesce):
-// shapes choose the branch.
+// The working set, block_floats(nlay, gb) floats, lives in shared memory
+// (74.6 KB a 128-g block at 72 layers: three blocks an SM).  Where it
+// exceeds the 227 KB a block may use (from 223 layers at gb = 128), the
+// wrapper passes a device scratch of that size per block and the same
+// kernel keeps it there (a template branch on the address space, with the
+// runs interleaved so that a warp's accesses coalesce): shapes choose the
+// branch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int STAGED = 2;   // floats staged a (layer, g): trans and src_up
+constexpr int CH = 8;       // layers a chunk: the dn butterfly's, the lead
+constexpr int MAX_CLUSTER = 8;   // blocks of a portable cluster
 
-// g-slots of a column (G rounded up to a thread's g-points), its warps,
-// and the stride of a g-point's run: STAGED floats a layer, the surface's
-// up and jac, and one spare to make it odd.
-__host__ __device__ inline int gslots(int G, int gpt)
+__host__ __device__ inline int block_threads(int gb)
 {
-    return (G + gpt - 1) / gpt * gpt;
+    return (gb + 31) / 32 * 32;
 }
 
-__host__ __device__ inline int col_warps(int G, int gpt)
-{
-    return ((G + gpt - 1) / gpt + 31) / 32;
-}
-
+// The stride of a g-point's run: STAGED floats a layer, the surface's up
+// and jac, and one spare to make it odd.
 __host__ __device__ inline int run_stride(int nlay)
 {
     return STAGED * nlay + 3;
 }
 
-// Floats of one column's working set: a run for every g-slot, then each
-// warp's dn partial at every level, rounded up to a multiple of 4.
-__host__ __device__ inline long long column_floats(int nlay, int G, int gpt)
+// Floats of one block's working set: a run for each of its gb g-points,
+// then each warp's dn partial at every level, rounded up to a multiple of
+// 4.
+__host__ __device__ inline long long block_floats(int nlay, int gb)
 {
-    const long long f = (long long)gslots(G, gpt) * run_stride(nlay)
-                      + (long long)col_warps(G, gpt) * (nlay + 1);
+    const long long f = (long long)gb * run_stride(nlay)
+                      + (long long)(block_threads(gb) / 32) * (nlay + 1);
     return (f + 3) / 4 * 4;
 }
 
@@ -111,44 +115,9 @@ struct LwArgs {
     float* dn;
     float* jac;
     float* scratch;       // null unless the device-scratch branch
-    int ncol, nlay, G;
+    int ncol, nlay, G, gb;
     float D, two_pi_w, scale, tau_thres;
 };
-
-// A thread's GPT g-points of a row from g0: one vector load where `vec`
-// (G % GPT == 0 and the row aligned), masked scalar loads otherwise;
-// g-points at or past G, and every g-point where `in` is false, read as
-// zero.
-template <int GPT>
-__device__ __forceinline__ void load_g(float (&v)[GPT], const float* row,
-                                       int g0, int G, bool vec,
-                                       bool in = true)
-{
-    if constexpr (GPT == 4) {
-        if (vec) {
-            const float4 x = in && g0 < G
-                ? __ldg(reinterpret_cast<const float4*>(row + g0))
-                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            v[0] = x.x;
-            v[1] = x.y;
-            v[2] = x.z;
-            v[3] = x.w;
-            return;
-        }
-    } else if constexpr (GPT == 2) {
-        if (vec) {
-            const float2 x = in && g0 < G
-                ? __ldg(reinterpret_cast<const float2*>(row + g0))
-                : make_float2(0.0f, 0.0f);
-            v[0] = x.x;
-            v[1] = x.y;
-            return;
-        }
-    }
-    #pragma unroll
-    for (int i = 0; i < GPT; ++i)
-        v[i] = in && g0 + i < G ? __ldg(row + g0 + i) : 0.0f;
-}
 
 // Sums N values of every lane over the warp: a fixed butterfly of
 // shuffles, after which lane L holds the sum of value L >> (5 - log2 N)
@@ -173,11 +142,6 @@ __device__ __forceinline__ float batch_sum(float* v, int lane)
     for (; bit >= 1; bit /= 2)
         s += __shfl_xor_sync(0xffffffffu, s, bit);
     return s;
-}
-
-__device__ __forceinline__ float warp_sum(float v)
-{
-    return batch_sum<1>(&v, 0);
 }
 
 // 1/y for a finite normal y: the hardware approximation and one Newton
@@ -213,94 +177,87 @@ __device__ __forceinline__ LwLayer lw_layer(float tau, float lay,
     return r;
 }
 
-// CH: layers a chunk (the dn butterfly's levels, the loads' lead).
-template <bool LM, int GPT, int CH, bool GLOBAL>
+template <bool LM, bool GLOBAL>
 __global__ void lw_sweep_kernel(const LwArgs a)
 {
-    constexpr int LOGC = CH == 8 ? 3 : CH == 4 ? 2 : -1;
-    static_assert(LOGC > 0, "a chunk is 4 or 8 layers");
+    constexpr int LOGC = 3;
+    static_assert(CH == 1 << LOGC, "a chunk is 8 layers");
     constexpr int WRITER = (32 >> LOGC) - 1;   // lane & WRITER == 0 writes
     extern __shared__ __align__(16) float smem[];
-    const int G = a.G, nlay = a.nlay, nlev = nlay + 1;
-    const long long c = blockIdx.x;
+    // The column's slices are one 1-D cluster of consecutive blocks: the
+    // slice is the block's rank in it.
+    cg::cluster_group cluster = cg::this_cluster();
+    const int G = a.G, gb = a.gb, nlay = a.nlay, nlev = nlay + 1;
+    const int nb = (G + gb - 1) / gb;
+    const long long c = blockIdx.x / nb;
+    const int rank = (int)(blockIdx.x - c * nb);
     const int t = threadIdx.x;
     const int tpc = blockDim.x;
     const int lane = t & 31;
     const int w = t >> 5;
-    const int g0 = t * GPT;
-    const bool active = g0 < G;
-    const int GS = gslots(G, GPT);
+    const int gw = min(gb, G - rank * gb);   // g-points of this slice
+    const bool active = t < gw;
     const int S = run_stride(nlay);
+    const long long bf = block_floats(nlay, gb);
     // The working set's address space is known at compile time, so the
     // shared branch uses shared-memory loads and stores throughout.
-    float* const stage = GLOBAL ? a.scratch + c * column_floats(nlay, G, GPT)
+    float* const stage = GLOBAL ? a.scratch + (long long)blockIdx.x * bf
                                 : smem;
-    float* const part = stage + (long long)GS * S;   // [nwarp][nlev] dn
+    float* const part = stage + (long long)gb * S;   // [nwarp][nlev] dn
     // Float j of g-point g's run: contiguous runs in shared memory;
     // interleaved (run j of every g-point together) in the device scratch,
     // where a warp's accesses then coalesce.
     auto at = [&](int g, int j) -> float& {
-        return GLOBAL ? stage[(long long)j * GS + g] : stage[g * S + j];
+        return GLOBAL ? stage[(long long)j * gb + g] : stage[g * S + j];
+    };
+    // This thread's g-point in the column's (ncol, G) rows and in a row of
+    // the planes.
+    const long long gc = (long long)rank * gb + t;
+    const long long cg0 = c * G + gc;
+    auto ld = [&](const float* p, bool in) {
+        return in && active ? __ldg(p) : 0.0f;
     };
 
-    const bool vec = GPT > 1 && G % GPT == 0
-        && (((uintptr_t)a.tau | (uintptr_t)a.lay_src | (uintptr_t)a.lev0
-             | (uintptr_t)a.inner | (uintptr_t)a.last)
-            & (4 * GPT - 1)) == 0;
-    const long long cg = c * G;
-
     // --- downward sweep ---
-    float rad[GPT], levp[GPT];
-    load_g<GPT>(rad, a.inc_flux + cg, g0, G, false);
-    float s0 = 0.0f;
-    #pragma unroll
-    for (int i = 0; i < GPT; ++i) {
-        rad[i] = rad[i] / a.two_pi_w;
-        s0 += rad[i];
+    float rad = ld(a.inc_flux + cg0, true) / a.two_pi_w;
+    {
+        float s0 = rad;
+        s0 = batch_sum<1>(&s0, lane);
+        if (lane == 0) part[w * nlev] = s0;
     }
-    s0 = warp_sum(s0);
-    if (lane == 0) part[w * nlev] = s0;
 
     // The rows of the next layer to load: tau and lay_src, and the level
     // below it (layer-major: a row of the inner levels, or the last level's
     // row for the last layer), advanced one layer a load.  Past the last
     // layer the loads are off and read as zero.
     const long long ls = LM ? (long long)a.ncol * G : G;
-    const float* pt = a.tau + (LM ? cg : c * nlay * G);
-    const float* py = a.lay_src + (LM ? cg : c * nlay * G);
-    const float* pv = LM ? a.inner + cg : a.lev0 + (c * nlev + 1) * G;
-    const float* const levn = LM ? a.last + cg : nullptr;
+    const float* pt = a.tau + (LM ? cg0 : c * nlay * G + gc);
+    const float* py = a.lay_src + (LM ? cg0 : c * nlay * G + gc);
+    const float* pv = LM ? a.inner + cg0 : a.lev0 + (c * nlev + 1) * G + gc;
+    const float* const levn = LM ? a.last + cg0 : nullptr;
     int ln = 0;
-    load_g<GPT>(levp, LM ? a.lev0 + cg : a.lev0 + c * nlev * G, g0, G, vec);
-    auto load_layer = [&](float (&x)[GPT], float (&y)[GPT],
-                          float (&z)[GPT]) {
+    float levp = ld(LM ? a.lev0 + cg0 : a.lev0 + c * nlev * G + gc, true);
+    auto load_layer = [&](float& x, float& y, float& z) {
         const bool in = ln < nlay;
-        load_g<GPT>(x, pt, g0, G, vec, in);
-        load_g<GPT>(y, py, g0, G, vec, in);
-        load_g<GPT>(z, LM && ln + 1 == nlay ? levn : pv, g0, G, vec, in);
+        x = ld(pt, in);
+        y = ld(py, in);
+        z = ld(LM && ln + 1 == nlay ? levn : pv, in);
         pt += ls;
         py += ls;
         pv += ls;
         ++ln;
     };
-    // Layer l from its inputs: the recurrence, the staged pair, and this
-    // thread's sum of dn at level l+1.
-    auto down = [&](int l, const float (&x)[GPT], const float (&y)[GPT],
-                    const float (&z)[GPT]) {
-        float s = 0.0f;
-        #pragma unroll
-        for (int i = 0; i < GPT; ++i) {
-            const LwLayer r = lw_layer(x[i], y[i], levp[i], z[i], a.D,
-                                       a.tau_thres);
-            rad[i] = r.trans * rad[i] + r.src_dn;
-            if (active) {
-                at(g0 + i, STAGED * l) = r.trans;
-                at(g0 + i, STAGED * l + 1) = r.src_up;
-            }
-            levp[i] = z[i];
-            s += rad[i];
+    // Layer l from its inputs: the recurrence and the staged pair; returns
+    // dn at level l+1.
+    auto down = [&](int l, float x, float y, float z) {
+        const LwLayer r = lw_layer(x, y, levp, z, a.D, a.tau_thres);
+        rad = r.trans * rad + r.src_dn;
+        if (active) {
+            at(t, STAGED * l) = r.trans;
+            at(t, STAGED * l + 1) = r.src_up;
         }
-        return s;
+        levp = z;
+        return rad;
     };
     auto put_dn = [&](int l0, float* s) {
         const float v = batch_sum<CH>(s, lane);
@@ -310,8 +267,8 @@ __global__ void lw_sweep_kernel(const LwArgs a)
 
     // One chunk's inputs in registers and the next chunk's loading beside
     // them.
-    float ct[CH][GPT], cl[CH][GPT], cv[CH][GPT];   // this chunk
-    float nt[CH][GPT], nl[CH][GPT], nv[CH][GPT];   // the next one
+    float ct[CH], cl[CH], cv[CH];   // this chunk
+    float nt[CH], nl[CH], nv[CH];   // the next one
     #pragma unroll
     for (int k = 0; k < CH; ++k) load_layer(ct[k], cl[k], cv[k]);
     int l0 = 0;
@@ -324,12 +281,9 @@ __global__ void lw_sweep_kernel(const LwArgs a)
         put_dn(l0, s);
         #pragma unroll
         for (int k = 0; k < CH; ++k) {
-            #pragma unroll
-            for (int i = 0; i < GPT; ++i) {
-                ct[k][i] = nt[k][i];
-                cl[k][i] = nl[k][i];
-                cv[k][i] = nv[k][i];
-            }
+            ct[k] = nt[k];
+            cl[k] = nl[k];
+            cv[k] = nv[k];
         }
     }
     if (l0 < nlay) {
@@ -345,39 +299,27 @@ __global__ void lw_sweep_kernel(const LwArgs a)
     // first, the full ones without a branch): (up, jac) of level l replace
     // the consumed (trans, src_up) of layer l. ---
     if (active) {
-        float u[GPT], j[GPT], emis[GPT], src[GPT], sjac[GPT];
-        load_g<GPT>(emis, a.sfc_emis + cg, g0, G, false);
-        load_g<GPT>(src, a.sfc_src + cg, g0, G, false);
-        load_g<GPT>(sjac, a.sfc_src_jac + cg, g0, G, false);
-        #pragma unroll
-        for (int i = 0; i < GPT; ++i) {
-            u[i] = rad[i] * (1.0f - emis[i]) + emis[i] * src[i];
-            j[i] = emis[i] * sjac[i];
-            at(g0 + i, STAGED * nlay) = u[i];
-            at(g0 + i, STAGED * nlay + 1) = j[i];
-        }
+        const float emis = __ldg(a.sfc_emis + cg0);
+        float u = rad * (1.0f - emis) + emis * __ldg(a.sfc_src + cg0);
+        float j = emis * __ldg(a.sfc_src_jac + cg0);
+        at(t, STAGED * nlay) = u;
+        at(t, STAGED * nlay + 1) = j;
         auto up_chunk = [&](int c0, auto full_chunk) {
             constexpr bool full = decltype(full_chunk)::value;
-            float tr[CH][GPT], sr[CH][GPT];
+            float tr[CH], sr[CH];
             #pragma unroll
             for (int k = 0; k < CH; ++k)
                 if (full || c0 + k < nlay) {
-                    #pragma unroll
-                    for (int i = 0; i < GPT; ++i) {
-                        tr[k][i] = at(g0 + i, STAGED * (c0 + k));
-                        sr[k][i] = at(g0 + i, STAGED * (c0 + k) + 1);
-                    }
+                    tr[k] = at(t, STAGED * (c0 + k));
+                    sr[k] = at(t, STAGED * (c0 + k) + 1);
                 }
             #pragma unroll
             for (int k = CH - 1; k >= 0; --k)
                 if (full || c0 + k < nlay) {
-                    #pragma unroll
-                    for (int i = 0; i < GPT; ++i) {
-                        u[i] = tr[k][i] * u[i] + sr[k][i];
-                        j[i] = tr[k][i] * j[i];
-                        at(g0 + i, STAGED * (c0 + k)) = u[i];
-                        at(g0 + i, STAGED * (c0 + k) + 1) = j[i];
-                    }
+                    u = tr[k] * u + sr[k];
+                    j = tr[k] * j;
+                    at(t, STAGED * (c0 + k)) = u;
+                    at(t, STAGED * (c0 + k) + 1) = j;
                 }
         };
         const int lt = nlay / CH * CH;
@@ -386,38 +328,66 @@ __global__ void lw_sweep_kernel(const LwArgs a)
             up_chunk(c0, std::true_type{});
     }
 
-    // --- level sums in a fixed order, scaled by pi*w: up and jac over g
-    // (run float 2*lev + q is level lev's up, q = 0, or jac, q = 1; four
-    // interleaved partial sums), dn over the warps ---
+    // --- the slice's level sums in a fixed order, in place: up and jac
+    // over g into the first g-point's run (run float 2*lev + q is level
+    // lev's up, q = 0, or jac, q = 1; four interleaved partial sums), dn
+    // over the warps into the first warp's row ---
     __syncthreads();
-    const long long o = c * nlev;
     for (int jr = t; jr < STAGED * nlev; jr += tpc) {
         float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        int g = 0;
-        for (; g + 4 <= G; g += 4) {
+        int k = 0;
+        for (; k + 4 <= gw; k += 4) {
             #pragma unroll
-            for (int q = 0; q < 4; ++q) p[q] += at(g + q, jr);
+            for (int q = 0; q < 4; ++q) p[q] += at(k + q, jr);
         }
-        for (; g < G; ++g) p[g & 3] += at(g, jr);
-        const float sum = (p[0] + p[1]) + (p[2] + p[3]);
-        (jr & 1 ? a.jac : a.up)[o + (jr >> 1)] = a.scale * sum;
+        // The ragged tail, with constant indices (p stays in registers).
+        #pragma unroll
+        for (int q = 0; q < 3; ++q)
+            if (k + q < gw) p[q] += at(k + q, jr);
+        at(0, jr) = (p[0] + p[1]) + (p[2] + p[3]);
     }
     for (int lev = t; lev < nlev; lev += tpc) {
         float sd = 0.0f;
         for (int v = 0; v < tpc / 32; ++v) sd += part[v * nlev + lev];
-        a.dn[o + lev] = a.scale * sd;
+        part[lev] = sd;
     }
+
+    // --- the column's sums: rank 0 adds the slices' in rank order, scaled
+    // by pi*w ---
+    if (GLOBAL) __threadfence();
+    cluster.sync();
+    if (rank == 0) {
+        const long long o = c * nlev;
+        for (int i = t; i < 3 * nlev; i += tpc) {
+            const int q = i / nlev;   // 0 up, 1 jac, 2 dn
+            const int lev = i - q * nlev;
+            float sum = 0.0f;
+            for (int r = 0; r < nb; ++r) {
+                const float* rs = GLOBAL
+                    ? a.scratch + (long long)(blockIdx.x + r) * bf
+                    : cluster.map_shared_rank(smem, r);
+                sum += q == 2 ? rs[(long long)gb * S + lev]
+                     : GLOBAL ? rs[(long long)(STAGED * lev + q) * gb]
+                              : rs[STAGED * lev + q];
+            }
+            (q == 0 ? a.up : q == 1 ? a.jac : a.dn)[o + lev] = a.scale * sum;
+        }
+    }
+    cluster.sync();
 }
 
-template <bool LM, int GPT, int CH, bool GLOBAL>
+template <bool LM, bool GLOBAL>
 int launch_branch(const LwArgs& a, void* stream)
 {
-    const int threads = col_warps(a.G, GPT) * 32;
-    if (threads > 1024 || a.nlay < 1 || a.G < 1)
+    if (a.gb < 1 || a.G < 1 || a.nlay < 1)
+        return (int)cudaErrorInvalidConfiguration;
+    const int nb = (a.G + a.gb - 1) / a.gb;
+    const int threads = block_threads(a.gb);
+    if (nb > MAX_CLUSTER || threads > 1024)
         return (int)cudaErrorInvalidConfiguration;
     const size_t smem = GLOBAL ? 0
-        : sizeof(float) * (size_t)column_floats(a.nlay, a.G, GPT);
-    auto kern = lw_sweep_kernel<LM, GPT, CH, GLOBAL>;
+        : sizeof(float) * (size_t)block_floats(a.nlay, a.gb);
+    auto kern = lw_sweep_kernel<LM, GLOBAL>;
     if (smem > 48 * 1024) {
         // Room for as many blocks an SM as shared memory allows.
         cudaError_t err = cudaFuncSetAttribute(
@@ -429,44 +399,46 @@ int launch_branch(const LwArgs& a, void* stream)
         if (err != cudaSuccess) return (int)err;
     }
     if (a.ncol <= 0) return (int)cudaGetLastError();
-    kern<<<a.ncol, threads, smem, (cudaStream_t)stream>>>(a);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((long long)a.ncol * nb));
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)nb;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
-template <bool LM, int GPT, int CH>
-int launch_gpt(const LwArgs& a, void* stream)
-{
-    return a.scratch ? launch_branch<LM, GPT, CH, true>(a, stream)
-                     : launch_branch<LM, GPT, CH, false>(a, stream);
-}
-
 template <bool LM>
-int launch(const LwArgs& a, int gpt, void* stream)
+int launch(const LwArgs& a, void* stream)
 {
-    switch (gpt) {
-    case 1: return launch_gpt<LM, 1, 8>(a, stream);
-    case 2: return launch_gpt<LM, 2, 8>(a, stream);
-    case 4: return launch_gpt<LM, 4, 4>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
-    }
+    return a.scratch ? launch_branch<LM, true>(a, stream)
+                     : launch_branch<LM, false>(a, stream);
 }
 
 }  // namespace
 
-// scratch: null, or ncol * column_floats(nlay, G, gpt) floats for the
-// device-scratch branch; gpt: g-points a thread (1, 2 or 4; a column's
-// threads, ceil(G/gpt) in whole warps, at most 1024).
+// scratch: null, or ncol * ceil(G/gb) * block_floats(nlay, gb) floats for
+// the device-scratch branch; gb: g-points a block (a column's blocks,
+// ceil(G/gb), are one cluster of at most 8).
 extern "C" int rrtmgp_lw_sweep_f32(
     const float* tau, const float* lay_src, const float* lev_src,
     const float* sfc_emis, const float* sfc_src, const float* sfc_src_jac,
     const float* inc_flux, float* up, float* dn, float* jac, float* scratch,
-    int ncol, int nlay, int G, int gpt, float D, float two_pi_w, float scale,
+    int ncol, int nlay, int G, int gb, float D, float two_pi_w, float scale,
     float tau_thres, void* stream)
 {
     const LwArgs a{tau, lay_src, lev_src, nullptr, nullptr, sfc_emis,
                    sfc_src, sfc_src_jac, inc_flux, up, dn, jac, scratch,
-                   ncol, nlay, G, D, two_pi_w, scale, tau_thres};
-    return launch<false>(a, gpt, stream);
+                   ncol, nlay, G, gb, D, two_pi_w, scale, tau_thres};
+    return launch<false>(a, stream);
 }
 
 extern "C" int rrtmgp_lw_sweep_lm_f32(
@@ -474,11 +446,11 @@ extern "C" int rrtmgp_lw_sweep_lm_f32(
     const float* lev_inner, const float* lev_last, const float* sfc_emis,
     const float* sfc_src, const float* sfc_src_jac, const float* inc_flux,
     float* up, float* dn, float* jac, float* scratch, int ncol, int nlay,
-    int G, int gpt, float D, float two_pi_w, float scale, float tau_thres,
+    int G, int gb, float D, float two_pi_w, float scale, float tau_thres,
     void* stream)
 {
     const LwArgs a{tau, lay_src, lev0, lev_inner, lev_last, sfc_emis,
                    sfc_src, sfc_src_jac, inc_flux, up, dn, jac, scratch,
-                   ncol, nlay, G, D, two_pi_w, scale, tau_thres};
-    return launch<true>(a, gpt, stream);
+                   ncol, nlay, G, gb, D, two_pi_w, scale, tau_thres};
+    return launch<true>(a, stream);
 }

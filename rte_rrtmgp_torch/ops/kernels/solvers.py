@@ -16,10 +16,10 @@
   :func:`rte_rrtmgp_torch.ops.rte_sw.sw_2stream_lm_plain`.
 
 None needs G to be a multiple of 32 or 128, nor ncol a multiple of 8.  An
-LW block is one column, ceil(G/gpt) threads of ``gpt`` consecutive
-g-points, its staged (trans, src_up) working set in shared memory;
-:func:`lw_geometry` chooses the g-points a thread and whether the working
-set must live in a device scratch instead (from 223 layers at G = 128).
+LW column is one cluster of blocks, each a slice of consecutive g-points,
+one a thread, its staged (trans, src_up) working set in shared memory;
+:func:`lw_geometry` chooses the slice and whether the working set must live
+in a device scratch instead (from 223 layers at 128 g-points a block).
 An SW block is one column and one tile of g-points, its working set in
 shared memory; :func:`sw_geometry` chooses the tile and whether the
 working set must live in a device scratch instead (only past ~340 layers).
@@ -43,9 +43,7 @@ SW_THREADS = 256
 SW_TILES = (32, 64, 128)
 MAX_CLUSTER = 8   # blocks of a portable thread block cluster
 LW_STAGED = 2     # floats staged a (layer, g): trans, src_up (lw_sweep.cu)
-LW_GPT = 1        # g-points a thread (measured: PERF.md §6, PR 4)
-LW_CHUNKS = {1: 8, 2: 8, 4: 4}   # layers a chunk at each g-points a thread
-LW_MAX_THREADS = 256   # a column's threads: more g-points a thread past it
+LW_BLOCK_G = 128  # g-points an LW block (measured: PERF.md §6, PR 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,15 +101,14 @@ def sw_geometry(ncol: int, nlay: int, G: int, gt: int = SW_TILE,
 
 @dataclasses.dataclass(frozen=True)
 class LwGeometry:
-    """Launch geometry of one LW sweep: ``gpt`` g-points a thread,
-    ``chunk`` layers a chunk (loaded one chunk ahead), ``threads`` threads
-    a block (one column), ``smem_bytes`` of shared memory a block, and
-    ``scratch_floats`` of device scratch for the whole launch (0 unless the
-    working set does not fit in shared memory: the device-scratch
-    branch)."""
+    """Launch geometry of one LW sweep: ``gb`` g-points a block (one a
+    thread, ``threads`` threads), ``blocks`` blocks a column (one cluster),
+    ``smem_bytes`` of shared memory a block, and ``scratch_floats`` of
+    device scratch for the whole launch (0 unless the working set does not
+    fit in shared memory: the device-scratch branch)."""
 
-    gpt: int
-    chunk: int
+    gb: int
+    blocks: int
     threads: int
     smem_bytes: int
     scratch_floats: int
@@ -121,20 +118,18 @@ class LwGeometry:
         return "global" if self.scratch_floats else "shared"
 
     def describe(self) -> str:
-        return (f"{self.gpt} g a thread, chunk {self.chunk}, "
-                f"{self.threads} threads a column, {self.branch} branch, "
+        return (f"{self.gb} g a block x {self.blocks} blocks a column, "
+                f"{self.threads} threads, {self.branch} branch, "
                 f"{self.smem_bytes} B smem, {4 * self.scratch_floats} B "
                 "scratch")
 
 
-def lw_column_floats(nlay: int, G: int, gpt: int) -> int:
-    """Floats of one column's LW working set (``column_floats`` of the CUDA
-    source): a run of LW_STAGED*nlay + 3 floats for each g-point (G rounded
-    up to a multiple of ``gpt``), then each warp's nlay+1 dn partials,
-    rounded up to a multiple of 4."""
-    threads = _ceil(G, gpt)
-    f = (threads * gpt * (LW_STAGED * nlay + 3)
-         + _ceil(threads, 32) * (nlay + 1))
+def lw_block_floats(nlay: int, gb: int) -> int:
+    """Floats of one LW block's working set (``block_floats`` of the CUDA
+    source): a run of LW_STAGED*nlay + 3 floats for each of its ``gb``
+    g-points, then each warp's nlay+1 dn partials, rounded up to a multiple
+    of 4."""
+    f = gb * (LW_STAGED * nlay + 3) + _ceil(gb, 32) * (nlay + 1)
     return 4 * _ceil(f, 4)
 
 
@@ -143,23 +138,23 @@ def _ceil(a: int, b: int) -> int:
 
 
 def lw_geometry(ncol: int, nlay: int, G: int,
-                gpt: int = LW_GPT) -> LwGeometry:
-    """One column a block, ``gpt`` g-points a thread (doubled while a column
-    would take more than LW_MAX_THREADS threads).  Where the column's
-    working set exceeds the shared memory a block may use, the same kernel
-    keeps it in a device scratch of ncol columns: from nlay = 223 at
-    G = 128."""
+                gb: int = LW_BLOCK_G) -> LwGeometry:
+    """A column is ceil(G/gb) blocks (widened until at most
+    :data:`MAX_CLUSTER`), the g-points shared out evenly between them.
+    Where a block's working set exceeds the shared memory a block may use,
+    the same kernel keeps it in a device scratch: from nlay = 223 at
+    gb = 128."""
     if not 0 < G <= MAX_G:
         raise ValueError(f"lw_sweep: G={G} outside 1..{MAX_G}")
     if nlay < 1:
         raise ValueError(f"lw_sweep: nlay={nlay}, needs at least one layer")
-    while _ceil(G, gpt) > LW_MAX_THREADS:
-        gpt *= 2
-    threads = 32 * _ceil(_ceil(G, gpt), 32)
-    floats = lw_column_floats(nlay, G, gpt)
+    gb = _ceil(G, _ceil(G, max(gb, _ceil(G, MAX_CLUSTER))))
+    blocks = _ceil(G, gb)
+    threads = 32 * _ceil(gb, 32)
+    floats = lw_block_floats(nlay, gb)
     if 4 * floats > _build.SMEM_PER_BLOCK:
-        return LwGeometry(gpt, LW_CHUNKS[gpt], threads, 0, ncol * floats)
-    return LwGeometry(gpt, LW_CHUNKS[gpt], threads, 4 * floats, 0)
+        return LwGeometry(gb, blocks, threads, 0, ncol * blocks * floats)
+    return LwGeometry(gb, blocks, threads, 4 * floats, 0)
 
 
 def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
@@ -167,7 +162,7 @@ def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
     layer and level planes (three column-major, five layer-major), ``sfc``
     the four (ncol, G) surface and boundary inputs."""
     dev, f32 = planes[0].device, torch.float32
-    geo = lw_geometry(ncol, nlay, G, LW_GPT)
+    geo = lw_geometry(ncol, nlay, G, LW_BLOCK_G)
     up, dn, jac = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
     scratch = (torch.empty(geo.scratch_floats, dtype=f32, device=dev)
                if geo.scratch_floats else None)
@@ -175,7 +170,7 @@ def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
         *(t.data_ptr() for t in planes), *(t.data_ptr() for t in sfc),
         up.data_ptr(), dn.data_ptr(), jac.data_ptr(),
         None if scratch is None else scratch.data_ptr(), ncol, nlay, G,
-        geo.gpt, *_lw_constants(D, w), stream_handle(dev))
+        geo.gb, *_lw_constants(D, w), stream_handle(dev))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     return up, dn, jac

@@ -1,9 +1,10 @@
 """Time the design variants of three kernels on the card, at the inputs of
 one flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,
-gpt_chunk 128, float32):
+gpt_chunk 128 unless ``--gpt-chunk`` says otherwise, float32):
 
-* the LW sweep (B2 ``lw_sweep``, B6 ``lw_sweep_lm``): g-points a thread
-  (with its chunk of layers);
+* the LW sweep (B2 ``lw_sweep``, B6 ``lw_sweep_lm``): g-points a block (a
+  column's cluster of blocks); in a checkout whose LW kernel has no such
+  choice (copied into a parent's), the kernel as built;
 * the SW two-stream solve (B3 ``sw_2stream``, B7 ``sw_2stream_lm``): g-tile
   width x threads a block;
 * the gas-optics interpolation (B1 ``gas_optics_interp``): cells a block x
@@ -12,6 +13,7 @@ gpt_chunk 128, float32):
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 -m rte_rrtmgp_torch.tools.kernel_variants [--kernels lw,sw,b1]
+        [--gpt-chunk N]
 
 Each variant is held to the plain twin first (LW and SW within 1e-5 of the
 output's largest value; B1 bit for bit), then its launches of one step are
@@ -30,6 +32,7 @@ import sys
 
 NCOL, NLAY = 2048, 72
 GPT_PER_BAND, GPT_CHUNK = 16, 128
+LW_BLOCK_GS = (32, 64, 128, 256)
 REL_TOL = 1e-5
 
 
@@ -106,7 +109,10 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", default="lw,sw,b1",
                     help="comma-separated subset of lw, sw, b1")
-    which = set(ap.parse_args(argv).kernels.split(","))
+    ap.add_argument("--gpt-chunk", type=int, default=GPT_CHUNK,
+                    help="g-points a spectral chunk (256: one LW chunk)")
+    opts = ap.parse_args(argv)
+    which = set(opts.kernels.split(","))
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device is available", file=sys.stderr)
         return 2
@@ -134,11 +140,11 @@ def main(argv) -> int:
     calls = {}
     for layout, kw in (("default", {}), ("layer_major",
                                          dict(layer_major=True))):
-        run_step = step.make_step(*tables, gpt_chunk=GPT_CHUNK, **kw)
+        run_step = step.make_step(*tables, gpt_chunk=opts.gpt_chunk, **kw)
         calls[layout] = record_step(run_step, args, targets)
     results = {}
 
-    # ---- LW sweep: g-points a thread ----
+    # ---- LW sweep: g-points a block ----
     lw_recs = {"lw_sweep": calls["default"]["lw_sweep"],
                "lw_sweep_lm": calls["layer_major"]["lw_sweep_lm"]}
     twins = {"lw_sweep": lambda *a, D, w: rte_lw.lw_sweep_plain(*a, D, w),
@@ -146,13 +152,13 @@ def main(argv) -> int:
                  *a, ncol, D, w)}
     refs = {name: [twins[name](*a, **kw) for a, kw in recs]
             for name, recs in lw_recs.items()} if "lw" in which else {}
-    for gpt in k_solvers.LW_CHUNKS:
+    chosen = hasattr(k_solvers, "LW_BLOCK_G")
+    for gb in LW_BLOCK_GS if chosen else (None,):
         for name in refs:
-            with patched((k_solvers, "LW_GPT", gpt)):
-                if not time_variant(
-                        f"{name} gpt={gpt} chunk={k_solvers.LW_CHUNKS[gpt]}",
-                        getattr(k_solvers, name), lw_recs[name], refs[name],
-                        results):
+            with patched(*([(k_solvers, "LW_BLOCK_G", gb)] if chosen else [])):
+                key = f"{name} gb={gb}" if chosen else f"{name} as built"
+                if not time_variant(key, getattr(k_solvers, name),
+                                    lw_recs[name], refs[name], results):
                     return 1
     del refs
 
@@ -201,7 +207,7 @@ def main(argv) -> int:
                 print(f"[variant] {key}: ms/step {sum(ms):.4f} (per launch "
                       f"{', '.join(f'{x:.4f}' for x in ms)}), bit-equal")
         del refs
-    print(f"[variants] card: {card}")
+    print(f"[variants] card: {card}; gpt_chunk {opts.gpt_chunk}")
     print(json.dumps({"variants_ms_per_step": results}))
     return 0
 

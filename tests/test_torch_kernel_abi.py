@@ -5,7 +5,7 @@ geometry, checked on the CPU (no nvcc, no card needed).
   argument count and kinds (pointer / int / long long / float) that
   ``_build.SIGNATURES`` declares to ctypes: a mismatch would pass wrong
   values on the card without any error.
-* The pure-Python geometry helpers (tile widths, g-points a thread,
+* The pure-Python geometry helpers (tile widths, g-points a block,
   shared-memory bytes, the LW and SW device-scratch branches) at the
   flagship (2048 x 72), golden (8 x 24) and edge shapes.
 """
@@ -72,72 +72,69 @@ def test_lw_staged_rows_match_the_source():
     assert m and int(m.group(1)) == solvers.LW_STAGED
 
 
-def test_lw_chunks_match_the_source():
-    """The chunk of layers each g-points-a-thread instance is built with."""
-    text = (_build.CSRC / "lw_sweep.cu").read_text()
-    built = {int(p): int(c) for p, c in re.findall(
-        r"case (\d): return launch_gpt<LM, \1, (\d+)>", text)}
-    assert built == solvers.LW_CHUNKS
-
-
-def _lw_floats(nlay, G, gpt):
-    """A column's working set: a run of 2*nlay + 3 floats for each g-slot
-    (G rounded up to gpt), each warp's nlay+1 dn partials, in 16-byte
-    units."""
-    threads = -(-G // gpt)
-    f = threads * gpt * (2 * nlay + 3) + -(-threads // 32) * (nlay + 1)
+def _lw_floats(nlay, gb):
+    """A block's working set: a run of 2*nlay + 3 floats for each of its gb
+    g-points, each warp's nlay+1 dn partials, in 16-byte units."""
+    f = gb * (2 * nlay + 3) + -(-gb // 32) * (nlay + 1)
     return -(-f // 4) * 4
 
 
-@pytest.mark.parametrize("ncol, nlay, G, gpt, threads", [
-    (2048, 72, 128, 1, 128),   # flagship LW chunk
-    (2048, 72, 96, 1, 96),     # a 96-wide chunk
-    (8, 24, 128, 1, 128),      # golden case
-    (17, 1, 1, 1, 32),         # one layer, one g-point
-    (17, 1, 13, 1, 32),        # ragged g tail
-    (5, 26, 1024, 4, 256),     # widest chunk: 4 g-points a thread
-    (5, 72, 300, 2, 160),      # past 256 g-points: 2 a thread
+@pytest.mark.parametrize("ncol, nlay, G, gb, blocks, threads", [
+    (2048, 72, 128, 128, 1, 128),   # flagship LW chunk
+    (2048, 72, 96, 96, 1, 96),      # a 96-wide chunk
+    (2048, 72, 256, 128, 2, 128),   # the whole LW k-distribution, one chunk
+    (8, 24, 128, 128, 1, 128),      # golden case
+    (17, 1, 1, 1, 1, 32),           # one layer, one g-point
+    (17, 1, 13, 13, 1, 32),         # ragged g tail
+    (5, 26, 1024, 128, 8, 128),     # widest chunk: a cluster of 8
+    (5, 72, 300, 100, 3, 128),      # g-points shared out evenly
 ])
-def test_lw_geometry_shared(ncol, nlay, G, gpt, threads):
+def test_lw_geometry_shared(ncol, nlay, G, gb, blocks, threads):
     geo = solvers.lw_geometry(ncol, nlay, G)
-    assert (geo.gpt, geo.threads, geo.scratch_floats, geo.branch) == (
-        gpt, threads, 0, "shared")
-    assert geo.smem_bytes == 4 * _lw_floats(nlay, G, gpt)
+    assert (geo.gb, geo.blocks, geo.threads, geo.scratch_floats,
+            geo.branch) == (gb, blocks, threads, 0, "shared")
+    assert geo.smem_bytes == 4 * _lw_floats(nlay, gb)
     assert geo.smem_bytes <= _build.SMEM_PER_BLOCK
-    assert geo.chunk == solvers.LW_CHUNKS[gpt]
 
 
-def test_lw_flagship_fits_three_columns_an_sm():
-    """Three 72-layer G=128 columns share an SM's 228 KB (each block also
-    takes 1 KB of the SM's shared memory for itself)."""
-    geo = solvers.lw_geometry(2048, 72, 128)
+@pytest.mark.parametrize("G", [128, 256, 1024])
+def test_lw_flagship_fits_three_columns_an_sm(G):
+    """Three 72-layer blocks of 128 g-points share an SM's 228 KB (each
+    block also takes 1 KB of the SM's shared memory for itself), at every
+    chunk width: a wider chunk is more blocks, not larger ones."""
+    geo = solvers.lw_geometry(2048, 72, G)
     assert 3 * (geo.smem_bytes + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("G, deepest_shared", [(1, 19369), (13, 2150),
                                                 (96, 296), (128, 222),
-                                                (1024, 26)])
+                                                (1024, 222)])
 def test_lw_scratch_branch_threshold(G, deepest_shared):
-    """The device-scratch branch starts one layer past the deepest column
+    """The device-scratch branch starts one layer past the deepest block
     whose working set fits in a block's shared memory."""
     assert solvers.lw_geometry(3, deepest_shared, G).branch == "shared"
     geo = solvers.lw_geometry(3, deepest_shared + 1, G)
     assert geo.branch == "global" and geo.smem_bytes == 0
-    assert geo.scratch_floats == 3 * _lw_floats(deepest_shared + 1, G,
-                                                geo.gpt)
+    assert geo.scratch_floats == 3 * geo.blocks * _lw_floats(
+        deepest_shared + 1, geo.gb)
 
 
-@pytest.mark.parametrize("gpt", [1, 2, 4])
-def test_lw_geometry_g_points_a_thread(gpt):
-    """A requested gpt stands while a column takes at most 256 threads;
-    past that it doubles."""
-    geo = solvers.lw_geometry(2048, 72, 128, gpt)
-    assert (geo.gpt, geo.threads) == (gpt, 32 * -(-(128 // gpt) // 32))
-    assert solvers.lw_geometry(4, 8, 1024, gpt).gpt == 4
-    assert solvers.lw_geometry(4, 8, 257, gpt).gpt == max(gpt, 2)
+@pytest.mark.parametrize("gb", [32, 64, 128, 256])
+def test_lw_geometry_block_width(gb):
+    """A requested block width stands where G needs at most a cluster of 8
+    blocks of it; otherwise a wider G widens it to 8 blocks.  The g-points
+    are shared out evenly: no block is empty and none exceeds the width."""
+    geo = solvers.lw_geometry(2048, 72, 128, gb)
+    assert (geo.gb, geo.blocks) == (min(gb, 128), -(-128 // gb))
+    assert geo.threads == 32 * -(-geo.gb // 32)
+    geo = solvers.lw_geometry(4, 8, 1024, gb)
+    assert (geo.gb, geo.blocks) == (max(gb, 128), 1024 // max(gb, 128))
+    geo = solvers.lw_geometry(4, 8, 200, gb)
+    assert (geo.blocks - 1) * geo.gb < 200 <= geo.blocks * geo.gb
+    assert geo.gb <= max(gb, 25) and geo.blocks <= solvers.MAX_CLUSTER
     for ncol, nlay, G in ((4, 72, 0), (4, 72, solvers.MAX_G + 1), (4, 0, 8)):
         with pytest.raises(ValueError):
-            solvers.lw_geometry(ncol, nlay, G, gpt)
+            solvers.lw_geometry(ncol, nlay, G, gb)
 
 
 def _sw_bytes(nlay, gt, tiles):

@@ -280,25 +280,26 @@ def _lw_check(args, ncol, lm, D=1.66, w=1.0):
 
 
 @pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
-@pytest.mark.parametrize("gpt", [1, 2, 4])
-@pytest.mark.parametrize("G", [12, 13, 96, 128])
-def test_lw_sweep_shapes(cuda, monkeypatch, G, gpt, lm):
-    """G with a ragged g tail and not a multiple of 4 (scalar loads), 1, 2
-    and 4 g-points a thread (chunks of 8 and 4 layers), nlay 37 (a ragged
-    chunk of layers), ncol 19 (one column a block), both layouts."""
-    monkeypatch.setattr(b23, "LW_GPT", gpt)
+@pytest.mark.parametrize("gb", [32, 64, 128])
+@pytest.mark.parametrize("G", [12, 13, 96, 128, 256])
+def test_lw_sweep_shapes(cuda, monkeypatch, G, gb, lm):
+    """G with a ragged g tail and not a multiple of 4, blocks of 32, 64 and
+    128 g-points (a column's cluster of 1 to 8 blocks), nlay 37 (a ragged
+    chunk of layers), ncol 19, both layouts."""
+    monkeypatch.setattr(b23, "LW_BLOCK_G", gb)
     ncol, nlay = 19, 37
-    _lw_check(_lw_args(cuda, np.random.default_rng(G + gpt), ncol, nlay, G,
+    _lw_check(_lw_args(cuda, np.random.default_rng(G + gb), ncol, nlay, G,
                        lm), ncol, lm)
 
 
 @pytest.mark.parametrize("lm", [False, True], ids=["cm", "lm"])
 @pytest.mark.parametrize("G, nlay, branch", [
     (13, 1, "shared"), (128, 1, "shared"), (128, 300, "global"),
-    (1024, 40, "global")])
+    (256, 72, "shared"), (256, 300, "global"), (1024, 40, "shared"),
+    (1024, 230, "global")])
 def test_lw_sweep_depths(cuda, G, nlay, branch, lm):
-    """One layer, and columns deep or wide enough to take the
-    device-scratch branch."""
+    """One layer, the flagship depth at the whole LW k-distribution's 256
+    g-points, and columns deep enough to take the device-scratch branch."""
     ncol = 5
     assert b23.lw_geometry(ncol, nlay, G).branch == branch
     _lw_check(_lw_args(cuda, np.random.default_rng(nlay + G), ncol, nlay, G,

@@ -18,15 +18,16 @@
 //
 // What bounds it on the H100.  By count, bytes: tau, lay_src and lev_src
 // (three plane-sized inputs, 75.5 MB each at 2048x72x128) are read once
-// per angle; the outputs are (ncol, nlev).  In practice, instruction issue
-// and latency (PERF.md §6): a (layer, g) costs 61 instructions in the down
+// per angle; the outputs are (ncol, nlev).  In practice, latency (PERF.md
+// §6), on the 12 warps an SM that shared memory leaves room for (three
+// blocks of 128 g-points): a (layer, g) costs 61 instructions in the down
 // sweep's loop (an exp, a reciprocal, both sources, the staging, the row
-// pointers) and 8 in the up sweep's, on the 12 warps an SM that shared
-// memory leaves room for (three blocks of 128 g-points), and each layer's
-// chain of exp and reciprocal leaves issue slots idle.  Loads further
-// ahead (an L2 prefetch of the next chunks) did not help; the column-major
-// entry runs a few percent slower than the layer-major one on the same
-// work, with fewer instructions: its reads, not its issue, differ.
+// pointers) and 8 in the up sweep's, which the SMs issue at about a third
+// of their rate.  More warps (16, a quarter of the pairs held in
+// registers) gained only 3-5%, loads further ahead (an L2 prefetch of the
+// next chunks) nothing.  2048 columns are 5.17 waves of 396 blocks, so a
+// 128-g chunk's last wave runs mostly empty; a 256-g chunk (10.3 waves)
+// runs 5-10% nearer the bound.
 //
 // Design.  A column is one thread block cluster of ceil(G/gb) blocks (at
 // most 8), each a slice of gb consecutive g-points, one g-point a thread

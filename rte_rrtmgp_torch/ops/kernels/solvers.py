@@ -139,11 +139,11 @@ def _ceil(a: int, b: int) -> int:
 
 def lw_geometry(ncol: int, nlay: int, G: int,
                 gb: int = LW_BLOCK_G) -> LwGeometry:
-    """A column is ceil(G/gb) blocks (widened until at most
-    :data:`MAX_CLUSTER`), the g-points shared out evenly between them.
-    Where a block's working set exceeds the shared memory a block may use,
-    the same kernel keeps it in a device scratch: from nlay = 223 at
-    gb = 128."""
+    """A column is one cluster of blocks of at most ``gb`` g-points (``gb``
+    widened where G would take more than :data:`MAX_CLUSTER` blocks), the
+    g-points shared out evenly between them.  Where a block's working set
+    exceeds the shared memory a block may use, the same kernel keeps it in
+    a device scratch: from nlay = 223 at 128 g-points a block."""
     if not 0 < G <= MAX_G:
         raise ValueError(f"lw_sweep: G={G} outside 1..{MAX_G}")
     if nlay < 1:

@@ -411,7 +411,9 @@ int launch_branch(const LwArgs& a, void* stream)
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    // A launch without the attribute is a cluster of one block; with it,
+    // the same launch measured 4-5% slower (PERF.md §6).
+    cfg.numAttrs = nb > 1 ? 1 : 0;
     const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();

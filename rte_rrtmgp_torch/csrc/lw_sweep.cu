@@ -24,8 +24,8 @@
 // sweep's loop (an exp, a reciprocal, both sources, the staging, the row
 // pointers) and 8 in the up sweep's, which the SMs issue at about a third
 // of their rate.  More warps (16, a quarter of the pairs held in
-// registers) gained only 3-5%, loads further ahead (an L2 prefetch of the
-// next chunks) nothing.  2048 columns are 5.17 waves of 396 blocks, so a
+// registers) gained 0-6% against this body, within the spread between
+// runs; loads further ahead (an L2 prefetch of the next chunks) nothing.  2048 columns are 5.17 waves of 396 blocks, so a
 // 128-g chunk's last wave runs mostly empty; a 256-g chunk (10.3 waves)
 // runs 5-10% nearer the bound.
 //

@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py            # under a minute, builds the kernels
+    python3 chip_smoke.py            # about two minutes, builds the kernels
     python3 chip_smoke.py --profile  # adds a torch.profiler table per layout
 
 The flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,
@@ -36,13 +36,28 @@ Phases (any failure ends the run with a nonzero exit):
    held to the exact counts of that layout), ms/step and col*gpt/s over a
    few synchronized steps, physics sanity, and the fluxes against the same
    step with the plain twins on the card and against the default layout.
-5. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
-   that runs it), then the last line ``{"ok": true, "device": {...}}``.
+5. The user's path at the RCEMIP extent (in ``build/chip_cli``): the
+   ``rcemip`` case generated by ``cases.inputs.make_case_files`` (4096
+   columns x 256 layers, clouds, classic NetCDF), the tables loaded from
+   it, the layout the environment and the tuned winner resolve for this
+   card (with the LW and SW launch geometry: one 256-g LW chunk takes the
+   sweep's device-scratch branch at 256 layers), then ``cli.main``
+   broadband (``--cloud-optics --delta-cloud --timings 3``), the same with
+   the plain twins, and by band (``--output-bnd-fluxes``), each held to
+   its exact launch counts; the broadband fluxes of the three within
+   ``STEP_TOL_WM2``; ``cases.check.self_consistency`` on the broadband and
+   by-band files and ``check.compare`` between them at 5.8e-2 W m-2; then
+   ``cases.rfmip.run`` (18 experiments x 100 sites x 60 layers), its
+   launch counts, ms per experiment and fluxes.
+6. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
+   that runs it in phase 4), then the last line ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -55,6 +70,9 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 # the solvers, a direct beam by running product vs cumprod.
 REL_TOL = 1e-5
 STEP_TOL_WM2 = 0.1             # step with kernels vs twins / vs default
+CLI_DIR = os.path.join("build", "chip_cli")
+CLI_TIMINGS = 3                # --timings of the CLI runs
+RFMIP_EXPERIMENTS = 18
 N_ROUNDS, N_STEPS = 3, 5       # step timing
 SIGMA = 5.670374419e-8
 LAYOUTS = {"default": dict(cellw=True, layer_major=False),
@@ -140,23 +158,192 @@ def bound(bytes_moved: float, ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def expected_launches(kd_lw, kd_sw):
-    """Exact kernel launches of one step in each layout.  ``interp_rows``
-    runs once per chunk that has minor intervals, counted from the
-    chunked k-distributions."""
+def expected_launches(kd_lw, kd_sw, gpt_chunk):
+    """Exact kernel launches of one LW + SW broadband solve (one Gauss
+    angle) in each layout, at ``gpt_chunk`` g-points a chunk (None: one
+    chunk a spectrum).  Each chunk makes one gas-optics launch and one
+    solver launch; ``interp_rows`` runs once per chunk that has minor
+    intervals, counted from the chunked k-distributions."""
     from rte_rrtmgp_torch.models.radiation import _chunks
 
-    n_minor = sum(bool(c.minor_lower or c.minor_upper)
-                  for kd in (kd_lw, kd_sw)
-                  for c in (kd.slice_gpt(g0, g1)
-                            for g0, g1 in _chunks(kd.ngpt, GPT_CHUNK)))
+    chunks = [kd.slice_gpt(g0, g1) for kd in (kd_lw, kd_sw)
+              for g0, g1 in _chunks(kd.ngpt, gpt_chunk)]
+    n_lw = len(_chunks(kd_lw.ngpt, gpt_chunk))
+    n_sw = len(chunks) - n_lw
+    n_minor = sum(bool(c.minor_lower or c.minor_upper) for c in chunks)
     return {
-        "default": {"gas_optics_interp": 4, "lw_sweep": 2, "sw_2stream": 2},
-        "cellw_off": {"interp_rows_multi": 4, "interp_rows": n_minor,
-                      "lw_sweep": 2, "sw_2stream": 2},
-        "layer_major": {"gas_optics_interp": 4, "lw_sweep_lm": 2,
-                        "sw_2stream_lm": 2},
+        "default": {"gas_optics_interp": n_lw + n_sw, "lw_sweep": n_lw,
+                    "sw_2stream": n_sw},
+        "cellw_off": {"interp_rows_multi": n_lw + n_sw,
+                      "interp_rows": n_minor, "lw_sweep": n_lw,
+                      "sw_2stream": n_sw},
+        "layer_major": {"gas_optics_interp": n_lw + n_sw,
+                        "lw_sweep_lm": n_lw, "sw_2stream_lm": n_sw},
     }
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items() if v}
+
+
+def cli_phase(dev, twins, record, replay, lw_scratch):
+    """The user's path at the RCEMIP extent: generate the case, run the CLI
+    (broadband, with the plain twins, by band), check the files, run the
+    RFMIP sweep.  Each run's launch counts are set to 0 just before it and
+    held to the exact counts of the layout it resolved just after.  One
+    more broadband run is recorded and its kernel launches replayed against
+    their twins at the CLI's shapes (``record`` / ``replay`` / ``lw_scratch``
+    of ``main``)."""
+    import numpy as np
+    import torch
+
+    from rte_rrtmgp_torch import cli, config
+    from rte_rrtmgp_torch.cases import check, inputs, rfmip
+    from rte_rrtmgp_torch.cases.profiles import make_atmosphere
+    from rte_rrtmgp_torch.models import CloudLUT, KDist
+    from rte_rrtmgp_torch.ops import kernels
+    from rte_rrtmgp_torch.ops.kernels import solvers as k_solvers
+    from rte_rrtmgp_torch.utils import tuner
+    from rte_rrtmgp_torch.utils.ncio import NcReader
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = inputs.make_case_files(CLI_DIR, "rcemip", gpt_per_band=GPT_PER_BAND)
+    with NcReader(paths["input"]) as nc:
+        nx, ny, nlay = nc.dim("x"), nc.dim("y"), nc.dim("lay")
+    ncol = nx * ny
+    print(f"[cli] case generation (rcemip, {nx}x{ny} columns x {nlay} "
+          f"layers, clouds, classic NetCDF): {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    gases = make_atmosphere(1, nlay)["gas_concs"].names()
+    kd_lw = KDist.from_netcdf(paths["coefs_lw"], gases, device=dev)
+    kd_sw = KDist.from_netcdf(paths["coefs_sw"], gases, device=dev)
+    for lw in (True, False):
+        CloudLUT.from_netcdf(paths["cloud_lw" if lw else "cloud_sw"], device=dev)
+    torch.cuda.synchronize()
+    print(f"[cli] table load (LW + SW k-distributions and cloud tables from "
+          f"NetCDF onto the card): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    env = {k: os.environ.get(k) for k in ("RTE_RRTMGP_PALLAS_CELLW",
+                                           "RTE_RRTMGP_LAYERMAJOR")}
+    cellw = config.cellw_enabled(dev)
+    lm = cellw and config.layer_major_enabled(dev)
+    layout = "layer_major" if lm else ("default" if cellw else "cellw_off")
+    per_solve = expected_launches(kd_lw, kd_sw, None)
+    print(f"[cli] layout resolved for {tuner.device_kind(dev)}: {layout} "
+          f"(cellw {cellw}, layer_major {lm}; environment {env}, tuned "
+          f"winner {tuner.best_kernel_opts(dev)}); launches per LW + SW "
+          f"solve {per_solve[layout]}")
+    geo = k_solvers.lw_geometry(ncol, nlay, kd_lw.ngpt)
+    print(f"[lw] cli {ncol}x{nlay} G={kd_lw.ngpt} (one chunk): "
+          f"{geo.describe()}")
+    if not geo.scratch_floats:
+        fail(f"LW sweep at {nlay} layers: expected the device-scratch branch")
+    print(f"[sw] cli {ncol}x{nlay} G={kd_sw.ngpt} (one chunk): "
+          f"{k_solvers.sw_geometry(ncol, nlay, kd_sw.ngpt).describe()}")
+
+    files = ["--input", paths["input"], "--coefs-lw", paths["coefs_lw"],
+             "--coefs-sw", paths["coefs_sw"], "--cloud-lw", paths["cloud_lw"],
+             "--cloud-sw", paths["cloud_sw"], "--aerosol", paths["aerosol"]]
+    out = {k: os.path.join(CLI_DIR, f"out_{k}.nc")
+           for k in ("broadband", "plain", "bybnd", "recorded")}
+    clouds = ["--cloud-optics", "--delta-cloud"]
+
+    # Each kernel at the CLI's shapes against its twin, timed beside its
+    # bound (one broadband solve of each spectrum, recorded).
+    calls = record(lambda: cli.main(files + ["--output", out["recorded"]]
+                                    + clouds))
+    got = {k: len(v) for k, v in calls.items() if v}
+    if got != per_solve[layout]:
+        fail(f"cli recorded run: launches {got}, expected {per_solve[layout]}")
+    for name in ("lw_sweep", "lw_sweep_lm"):
+        if calls[name]:
+            extra, helper, C, L, G = lw_scratch(name, *calls[name][0])
+            print(f"[lw] cli {name} device scratch at {C}x{L} G={G}: {helper} "
+                  f"B by the wrapper's geometry, {extra} B allocated beyond "
+                  "the outputs (measured)")
+    for name, recs in calls.items():
+        if recs:
+            replay(name, recs, "cli")
+    del calls
+
+    def run(name, flags, expected, timings=0, patch=None):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        argv = files + ["--output", out[name]] + flags
+        if timings:
+            argv += ["--timings", str(timings)]
+        if patch is None:
+            rc = cli.main(argv)
+        else:
+            with patch:
+                rc = cli.main(argv)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in kernels.launch_counts().items() if v}
+        print(f"[cli] {name}: rc {rc}, {time.perf_counter() - t0:.2f} s "
+              f"(reads, {1 + timings} solves of each spectrum, writes); peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+              f"GiB; launches {got}")
+        if rc != 0 or got != expected:
+            fail(f"cli {name}: rc {rc}, launches {got}, expected {expected}")
+
+    run("broadband", clouds, scaled(per_solve[layout], 1 + CLI_TIMINGS),
+        CLI_TIMINGS)
+    run("plain", clouds, {}, patch=twins)
+    gas_only = {k: v for k, v in per_solve[
+        "cellw_off" if layout == "cellw_off" else "default"].items()
+        if k in ("gas_optics_interp", "interp_rows_multi", "interp_rows")}
+    run("bybnd", clouds + ["--output-bnd-fluxes"],
+        scaled(gas_only, 1 + CLI_TIMINGS), CLI_TIMINGS)
+
+    with NcReader(out["broadband"]) as nb, NcReader(out["plain"]) as npl, \
+            NcReader(out["bybnd"]) as nbb:
+        names = [v for v in check.DEFAULT_VARS if nb.has(v)]
+        if len(names) != len(check.DEFAULT_VARS):
+            fail(f"cli broadband output holds only {names}")
+        for what, other in (("plain twins", npl), ("by-band run", nbb)):
+            worst = {}
+            for v in names:
+                a, b = nb.read(v), other.read(v)
+                if a.shape != (nlay + 1, ny, nx) or a.shape != b.shape:
+                    fail(f"cli {v}: shapes {a.shape} / {b.shape}")
+                worst[v] = float(np.abs(a.astype(np.float64) - b).max())
+            print(f"[cli] broadband vs {what} (W m-2): " + ", ".join(
+                f"{k}={v:.3e}" for k, v in worst.items()))
+            if max(worst.values()) > STEP_TOL_WM2:
+                fail(f"cli broadband vs {what}: {max(worst.values()):.3e} "
+                     f"W m-2 > {STEP_TOL_WM2}")
+    for name in ("broadband", "bybnd"):
+        if not check.self_consistency(out[name], verbose=False):
+            fail(f"cli {name}: self_consistency failed")
+    print("[cli] self_consistency passes on the broadband and by-band files")
+    if not check.compare(out["bybnd"], out["broadband"]):
+        fail("cli: compare(by-band, broadband) above its 5.8e-2 W m-2 gate")
+    print("[cli] compare(by-band, broadband) within 5.8e-2 W m-2")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = rfmip.run(CLI_DIR, device=dev)
+    dt = time.perf_counter() - t0
+    got = {k: v for k, v in kernels.launch_counts().items() if v}
+    expected = scaled(per_solve[layout], RFMIP_EXPERIMENTS)
+    print(f"[rfmip] {RFMIP_EXPERIMENTS} experiments x 100 sites x 60 layers "
+          f"(float32, clear sky): {dt * 1e3 / RFMIP_EXPERIMENTS:.1f} ms per "
+          "experiment (host clock over the whole run, tables loaded and "
+          f"file written included; each experiment's own ms above); "
+          f"launches {got}")
+    if got != expected:
+        fail(f"rfmip launches {got}, expected {expected}")
+    with NcReader(path) as nc:
+        for v in ("rld", "rlu", "rsd", "rsu"):
+            a = nc.read(v)
+            if a.shape != (RFMIP_EXPERIMENTS, 61, 100) or \
+                    not np.isfinite(a).all() or a.min() < 0:
+                fail(f"rfmip {v}: shape {a.shape}, finite "
+                     f"{np.isfinite(a).all()}, min {a.min()}")
+    print("[rfmip] rld/rlu/rsd/rsu finite and non-negative, (18, 61, 100)")
 
 
 def main(argv) -> int:
@@ -207,7 +394,7 @@ def main(argv) -> int:
     args = [torch.as_tensor(arrs[k], device=dev) for k in step.ARG_NAMES]
     arg = dict(zip(step.ARG_NAMES, args))
     torch.cuda.synchronize()
-    expected = expected_launches(kd_lw, kd_sw)
+    expected = expected_launches(kd_lw, kd_sw, GPT_CHUNK)
     print(f"[setup] tables + atmosphere {time.perf_counter() - t0:.2f} s; "
           f"ngpt LW {kd_lw.ngpt} SW {kd_sw.ngpt}, {NCOL}x{NLAY}, "
           f"gpt_chunk {GPT_CHUNK}; expected launches per step {expected}")
@@ -556,7 +743,12 @@ def main(argv) -> int:
               f"{NCOL * ngpt / med * 1e3:.4e} col*gpt/s ({NCOL}x{NLAY}, "
               f"{ngpt} g-points)")
 
-    # ---- 5. result lines ----
+    # ---- 5. the CLI, the case tools and the RFMIP sweep ----
+    del steps, outs
+    torch.cuda.empty_cache()
+    cli_phase(dev, twins, record, replay, lw_scratch)
+
+    # ---- 6. result lines ----
     rows = []
     for name, meta in KERNEL_INFO.items():
         layout = meta["layout"]

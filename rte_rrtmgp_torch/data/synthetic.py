@@ -267,6 +267,72 @@ def make_kdist_raw(longwave: bool, seed: int = 0,
     return raw
 
 
+def write_kdist_nc(path: str, raw: dict) -> None:
+    """Write a raw coefficient dict as a classic NetCDF file with the dimension
+    names the reference driver reads (src_test/Radiation_solver.cpp:78-95)."""
+    from ..utils.ncio import NcWriter
+
+    ntemp, npress1, neta, ngpt = raw["kmajor"].shape
+    nbnd = raw["bnd_limits_gpt"].shape[0]
+
+    dims = {
+        "temperature": ntemp, "pressure": npress1 - 1, "pressure_interp": npress1,
+        "mixing_fraction": neta, "gpt": ngpt, "bnd": nbnd, "pair": 2,
+        "atmos_layer": 2, "absorber": raw["gas_names"].shape[0],
+        "absorber_ext": raw["vmr_ref"].shape[1],
+        "minor_absorber": raw["gas_minor"].shape[0],
+        "minor_absorber_intervals_lower": raw["minor_limits_gpt_lower"].shape[0],
+        "minor_absorber_intervals_upper": raw["minor_limits_gpt_upper"].shape[0],
+        "contributors_lower": raw["kminor_lower"].shape[2],
+        "contributors_upper": raw["kminor_upper"].shape[2],
+        "string_len": 32,
+    }
+    var_dims = {
+        "gas_names": ("absorber", "string_len"),
+        "gas_minor": ("minor_absorber", "string_len"),
+        "identifier_minor": ("minor_absorber", "string_len"),
+        "key_species": ("bnd", "atmos_layer", "pair"),
+        "bnd_limits_wavenumber": ("bnd", "pair"),
+        "bnd_limits_gpt": ("bnd", "pair"),
+        "press_ref": ("pressure",),
+        "temp_ref": ("temperature",),
+        "vmr_ref": ("temperature", "absorber_ext", "atmos_layer"),
+        "kmajor": ("temperature", "pressure_interp", "mixing_fraction", "gpt"),
+        "kminor_lower": ("temperature", "mixing_fraction", "contributors_lower"),
+        "kminor_upper": ("temperature", "mixing_fraction", "contributors_upper"),
+        "minor_gases_lower": ("minor_absorber_intervals_lower", "string_len"),
+        "minor_gases_upper": ("minor_absorber_intervals_upper", "string_len"),
+        "minor_limits_gpt_lower": ("minor_absorber_intervals_lower", "pair"),
+        "minor_limits_gpt_upper": ("minor_absorber_intervals_upper", "pair"),
+        "minor_scales_with_density_lower": ("minor_absorber_intervals_lower",),
+        "minor_scales_with_density_upper": ("minor_absorber_intervals_upper",),
+        "scale_by_complement_lower": ("minor_absorber_intervals_lower",),
+        "scale_by_complement_upper": ("minor_absorber_intervals_upper",),
+        "scaling_gas_lower": ("minor_absorber_intervals_lower", "string_len"),
+        "scaling_gas_upper": ("minor_absorber_intervals_upper", "string_len"),
+        "kminor_start_lower": ("minor_absorber_intervals_lower",),
+        "kminor_start_upper": ("minor_absorber_intervals_upper",),
+        "totplnk": ("bnd", "temperature_Planck"),
+        "plank_fraction": ("temperature", "pressure_interp", "mixing_fraction", "gpt"),
+        "rayl_lower": ("temperature", "mixing_fraction", "gpt"),
+        "rayl_upper": ("temperature", "mixing_fraction", "gpt"),
+        "solar_source_quiet": ("gpt",),
+        "solar_source_facular": ("gpt",),
+        "solar_source_sunspot": ("gpt",),
+    }
+    with NcWriter(path) as nc:
+        for name, size in dims.items():
+            nc.def_dim(name, size)
+        if "totplnk" in raw:
+            nc.def_dim("temperature_Planck", raw["totplnk"].shape[1])
+        for name, val in raw.items():
+            val = np.asarray(val)
+            if val.ndim == 0:
+                nc.write_scalar(name, val)
+            else:
+                nc.write(name, val, var_dims[name])
+
+
 def make_cloud_raw(longwave: bool, seed: int = 0) -> dict:
     """Synthetic cloud-optics LUTs (real file layout:
     src_test/Radiation_solver.cpp:286-329)."""
@@ -314,6 +380,27 @@ def make_cloud_raw(longwave: bool, seed: int = 0) -> dict:
     }
 
 
+def write_cloud_nc(path: str, raw: dict) -> None:
+    from ..utils.ncio import NcWriter
+
+    nbnd, nsl = raw["lut_extliq"].shape
+    nrgh, _, nsi = raw["lut_extice"].shape
+    with NcWriter(path) as nc:
+        nc.def_dim("nband", nbnd)
+        nc.def_dim("nrghice", nrgh)
+        nc.def_dim("nsize_liq", nsl)
+        nc.def_dim("nsize_ice", nsi)
+        nc.def_dim("pair", 2)
+        nc.write("bnd_limits_wavenumber", raw["bnd_limits_wavenumber"], ("nband", "pair"))
+        for k in ("radliq_lwr", "radliq_upr", "radliq_fac",
+                  "diamice_lwr", "diamice_upr", "diamice_fac"):
+            nc.write_scalar(k, raw[k])
+        for k in ("lut_extliq", "lut_ssaliq", "lut_asyliq"):
+            nc.write(k, raw[k], ("nband", "nsize_liq"))
+        for k in ("lut_extice", "lut_ssaice", "lut_asyice"):
+            nc.write(k, raw[k], ("nrghice", "nband", "nsize_ice"))
+
+
 def make_aerosol_raw(seed: int = 0, nbnd: int = 14, nhum: int = 12,
                      nphilic: int = 5, nphobic: int = 11) -> dict:
     """Synthetic CAMS aerosol tables (real file: data/aerosol_optics.nc,
@@ -341,3 +428,22 @@ def make_aerosol_raw(seed: int = 0, nbnd: int = 14, nhum: int = 12,
         "ssa_sw_hydrophilic": ssa_philic,
         "asymmetry_sw_hydrophilic": g_philic,
     }
+
+
+def write_aerosol_nc(path: str, raw: dict) -> None:
+    from ..utils.ncio import NcWriter
+
+    nphobic, nbnd = raw["mass_ext_sw_hydrophobic"].shape
+    nphilic, nhum, _ = raw["mass_ext_sw_hydrophilic"].shape
+    with NcWriter(path) as nc:
+        nc.def_dim("band_sw", nbnd)
+        nc.def_dim("relative_humidity", nhum)
+        nc.def_dim("hydrophilic", nphilic)
+        nc.def_dim("hydrophobic", nphobic)
+        nc.write("relative_humidity2", raw["relative_humidity2"], ("relative_humidity",))
+        for k in ("mass_ext_sw_hydrophobic", "ssa_sw_hydrophobic",
+                  "asymmetry_sw_hydrophobic"):
+            nc.write(k, raw[k], ("hydrophobic", "band_sw"))
+        for k in ("mass_ext_sw_hydrophilic", "ssa_sw_hydrophilic",
+                  "asymmetry_sw_hydrophilic"):
+            nc.write(k, raw[k], ("hydrophilic", "relative_humidity", "band_sw"))

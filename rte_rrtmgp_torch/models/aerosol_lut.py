@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .. import config
-from .kdist import to_tensor
+from .kdist import read_raw, to_tensor
 
 
 class AerosolSpecies(NamedTuple):
@@ -55,6 +55,12 @@ class AerosolLUT:
     @property
     def nbnd(self) -> int:
         return self.mext_phobic.shape[0]
+
+    @staticmethod
+    def from_netcdf(path: str, dtype=None, device=None) -> "AerosolLUT":
+        """Load an aerosol-optics file through :meth:`from_raw`.  ``device``
+        defaults to ``cuda``."""
+        return AerosolLUT.from_raw(read_raw(path), dtype=dtype, device=device)
 
     @staticmethod
     def from_raw(raw: dict, dtype=None, device=None) -> "AerosolLUT":

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from .. import config
-from .kdist import to_tensor
+from .kdist import read_raw, to_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +37,12 @@ class CloudLUT:
     @property
     def nbnd(self) -> int:
         return self.lut_extliq.shape[1]
+
+    @staticmethod
+    def from_netcdf(path: str, dtype=None, device=None) -> "CloudLUT":
+        """Load a cloud-optics file through :meth:`from_raw`.  ``device``
+        defaults to ``cuda``."""
+        return CloudLUT.from_raw(read_raw(path), dtype=dtype, device=device)
 
     @staticmethod
     def from_raw(raw: dict, dtype=None, device=None) -> "CloudLUT":

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.ncio import NcReader, decode_strings
 
 
 class MinorSpec(NamedTuple):
@@ -79,20 +80,10 @@ META_FIELDS = (
 )
 
 
-def decode_strings(arr) -> np.ndarray:
-    """Decode a NetCDF char array (..., string_len) of S1 into str objects."""
-    arr = np.asarray(arr)
-    if arr.dtype.kind == "S" and arr.dtype.itemsize == 1 and arr.ndim >= 1:
-        flat = arr.reshape(-1, arr.shape[-1])
-        out = np.array(
-            [b"".join(row).decode("ascii", "replace").strip("\x00").strip()
-             for row in flat], dtype=object)
-        return out.reshape(arr.shape[:-1])
-    if arr.dtype.kind == "S":
-        return np.array([s.decode("ascii", "replace").strip()
-                         for s in arr.reshape(-1)],
-                        dtype=object).reshape(arr.shape)
-    return arr
+def read_raw(path: str) -> dict:
+    """Every variable of a NetCDF file, as the raw dict ``from_raw`` takes."""
+    with NcReader(path) as nc:
+        return {name: nc.read(name) for name in nc.variables()}
 
 
 def numpy_dtype(dtype: torch.dtype):
@@ -239,7 +230,19 @@ class KDist:
                  + (sb_index - config.SOLAR_B_OFFSET) * self.solar_source_sunspot)
         return dataclasses.replace(self, solar_source=solar)
 
+    def total_solar_irradiance(self) -> float:
+        return float(np.sum(self.solar_source.cpu().numpy()))
+
     # ------------------------------------------------------------------
+    @staticmethod
+    def from_netcdf(path: str, available_gases: Sequence[str], dtype=None,
+                    device=None) -> "KDist":
+        """Load a k-distribution coefficient file (the variable names of
+        the files ``src_test/Radiation_solver.cpp:70-284`` reads) through
+        :meth:`from_raw`.  ``device`` defaults to ``cuda``."""
+        return KDist.from_raw(read_raw(path), available_gases, dtype=dtype,
+                              device=device)
+
     @staticmethod
     def from_raw(raw: dict, available_gases: Sequence[str], dtype=None,
                  device=None) -> "KDist":

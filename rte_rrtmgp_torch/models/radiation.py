@@ -13,16 +13,19 @@
   flipped in and the outputs flipped back.
 
 Three layouts of the same function, chosen by ``cellw`` and
-``layer_major`` (``None``: from the environment, ``config.cellw_enabled`` /
+``layer_major`` (``None``: the environment, then the tuned winner for the
+tables' device, then the default; ``config.cellw_enabled`` /
 ``config.layer_major_enabled``).  On the card every chunk makes
 
 * default (cellw on, layer-major off): one launch of the per-cell-weight
   gas-optics kernel, then one LW sweep launch per Gauss angle or one SW
-  two-stream launch;
+  two-stream launch (broadband output; by-band output runs the plain
+  PyTorch solvers, as the JAX package runs ``lax.scan`` there, and
+  ``with_fluxes=False`` no solver at all);
 * ``cellw=False``: one launch of the weight-plane kernel for the major
   gases (with planck_frac or krayl) and one for the minor gases when the
   chunk has minor intervals, then the same solver launches;
-* ``layer_major=True`` (with cellw on, broadband output only, and a
+* ``layer_major=True`` (with cellw on, fluxes and broadband output only, and a
   k-distribution with minor intervals; otherwise the default layout): the
   per-cell-weight kernel on layer-major inputs, so every (N, G) plane has
   cell (c, l) at row l*ncol + c, then the layer-major solver kernels.
@@ -57,11 +60,12 @@ def _flip_lay(a):
 
 
 def _layouts(kd: KDist, cellw, layer_major, broadband_only: bool):
-    """(cellw, lm): ``None`` resolved from the environment; layer-major
-    applies only with cellw on, broadband output only and a k-distribution
+    """(cellw, lm): ``None`` resolved for the tables' device (environment,
+    then the tuned winner, then the default); layer-major applies only with
+    cellw on, fluxes wanted and broadband output only, and a k-distribution
     with minor intervals (the JAX package's predicate)."""
-    cellw = config.cellw_enabled() if cellw is None else bool(cellw)
-    layer_major = (config.layer_major_enabled() if layer_major is None
+    cellw = config.cellw_enabled(kd.device) if cellw is None else bool(cellw)
+    layer_major = (config.layer_major_enabled(kd.device) if layer_major is None
                    else bool(layer_major))
     lm = (layer_major and cellw and broadband_only
           and bool(kd.minor_lower or kd.minor_upper))
@@ -72,7 +76,7 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
                    vmr, col_dry, emis_sfc, lwp, iwp, rel, dei,
                    *, top_at_1: bool, gpt_chunk, output_bnd_fluxes: bool,
                    n_gauss_angles: int, with_clouds: bool,
-                   output_optical: bool = False,
+                   output_optical: bool = False, with_fluxes: bool = True,
                    cellw: Optional[bool] = None,
                    layer_major: Optional[bool] = None):
     if not top_at_1:
@@ -98,8 +102,8 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
     interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("lw_tau", "lay_source", "lev_source",
                                "sfc_source")} if output_optical else None
-    cellw, lm = _layouts(kd, cellw, layer_major,
-                         not output_bnd_fluxes and not output_optical)
+    cellw, lm = _layouts(kd, cellw, layer_major, with_fluxes
+                         and not output_bnd_fluxes and not output_optical)
     if lm:
         # Layer-major: the gas-optics kernel runs on (nlay, ncol) inputs and
         # writes (nlay, ncol, G) = the (N, G) planes the solver reads.
@@ -136,6 +140,8 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
             optical["lay_source"].append(src.lay_src)
             optical["lev_source"].append(src.lev_src)
             optical["sfc_source"].append(src.sfc_src)
+        if not with_fluxes:
+            continue
 
         emis_gpt = flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band)
         inc = new(ncol, g1 - g0)
@@ -156,8 +162,10 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
         bnd_up = bnd_up + flux_ops.sum_byband(up, kdc.gpt2band, nbnd)
         bnd_dn = bnd_dn + flux_ops.sum_byband(dn, kdc.gpt2band, nbnd)
 
-    out = {"lw_flux_up": flux_up, "lw_flux_dn": flux_dn,
-           "lw_flux_net": flux_dn - flux_up}
+    out = {}
+    if with_fluxes:
+        out.update(lw_flux_up=flux_up, lw_flux_dn=flux_dn,
+                   lw_flux_net=flux_dn - flux_up)
     if output_bnd_fluxes:
         out.update(lw_bnd_flux_up=bnd_up, lw_bnd_flux_dn=bnd_dn,
                    lw_bnd_flux_net=bnd_dn - bnd_up)
@@ -178,7 +186,7 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                    *, top_at_1: bool, gpt_chunk, output_bnd_fluxes: bool,
                    with_clouds: bool, with_aerosols: bool,
                    delta_cloud: bool, delta_aerosol: bool,
-                   output_optical: bool = False,
+                   output_optical: bool = False, with_fluxes: bool = True,
                    cellw: Optional[bool] = None,
                    layer_major: Optional[bool] = None):
     if not top_at_1:
@@ -216,8 +224,8 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
     interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("sw_tau", "ssa", "g", "toa_source")} \
         if output_optical else None
-    cellw, lm = _layouts(kd, cellw, layer_major,
-                         not output_bnd_fluxes and not output_optical)
+    cellw, lm = _layouts(kd, cellw, layer_major, with_fluxes
+                         and not output_bnd_fluxes and not output_optical)
     if lm:
         lm_in = tuple(map(gas_ops.layer_major,
                           (interp, p_lay, t_lay, col_gas, col_dry)))
@@ -248,6 +256,8 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
             optical["ssa"].append(op.ssa)
             optical["g"].append(op.g)
             optical["toa_source"].append(toa)
+        if not with_fluxes:
+            continue
         alb_dir = flux_ops.expand_bands_to_gpt(sfc_alb_dir, kdc.gpt2band)
         alb_dif = flux_ops.expand_bands_to_gpt(sfc_alb_dif, kdc.gpt2band)
 
@@ -277,9 +287,11 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
 
     # Night columns (mu0 <= 0) get zero SW fluxes.
     day = (mu0 > 0.0).to(dtype)[:, None]
-    out = {"sw_flux_up": flux_up * day, "sw_flux_dn": flux_dn * day,
-           "sw_flux_dn_dir": flux_dir * day,
-           "sw_flux_net": (flux_dn - flux_up) * day}
+    out = {}
+    if with_fluxes:
+        out.update(sw_flux_up=flux_up * day, sw_flux_dn=flux_dn * day,
+                   sw_flux_dn_dir=flux_dir * day,
+                   sw_flux_net=(flux_dn - flux_up) * day)
     if output_bnd_fluxes:
         d3 = day[:, :, None]
         out.update(sw_bnd_flux_up=bnd["up"] * d3, sw_bnd_flux_dn=bnd["dn"] * d3,
@@ -362,16 +374,20 @@ class RadiationSolverLW(_SolverBase):
               emis_sfc, col_dry=None, lwp=None, iwp=None, rel=None, dei=None,
               gpt_chunk: Optional[int] = None, output_bnd_fluxes: bool = False,
               n_gauss_angles: int = 1, output_optical: bool = False,
+              with_fluxes: bool = True, check_inputs: bool = True,
               cellw: Optional[bool] = None,
               layer_major: Optional[bool] = None) -> dict:
         """emis_sfc: (ncol, nbnd) surface emissivity per band.  Runs on the
         k-distribution's device.
 
         Cloud fields (lwp/iwp in g m-2, rel/dei in micron) enable the
-        cloudy-sky path when provided.  ``cellw`` / ``layer_major`` choose
-        the layout (module docstring; ``None``: from the environment)."""
+        cloudy-sky path when provided.  ``with_fluxes=False`` skips the
+        solve (optical output only); ``check_inputs=False`` skips the range
+        checks.  ``cellw`` / ``layer_major`` choose the layout (module
+        docstring; ``None``: environment, tuned winner, default)."""
         dtype = self.kdist.dtype
-        self._validate(p_lay, p_lev, t_lay, t_lev, t_sfc, col_dry)
+        if check_inputs:
+            self._validate(p_lay, p_lev, t_lay, t_lev, t_sfc, col_dry)
         top_at_1 = self._detect_top(p_lay)
         with_clouds = lwp is not None
         p_lay = self._tensor(p_lay, dtype)
@@ -391,8 +407,8 @@ class RadiationSolverLW(_SolverBase):
             top_at_1=top_at_1, gpt_chunk=gpt_chunk,
             output_bnd_fluxes=output_bnd_fluxes,
             n_gauss_angles=n_gauss_angles, with_clouds=with_clouds,
-            output_optical=output_optical, cellw=cellw,
-            layer_major=layer_major)
+            output_optical=output_optical, with_fluxes=with_fluxes,
+            cellw=cellw, layer_major=layer_major)
 
 
 class RadiationSolverSW(_SolverBase):
@@ -404,14 +420,17 @@ class RadiationSolverSW(_SolverBase):
               lwp=None, iwp=None, rel=None, dei=None, rh=None, aermr=None,
               gpt_chunk: Optional[int] = None, output_bnd_fluxes: bool = False,
               delta_cloud: bool = False, delta_aerosol: bool = False,
-              output_optical: bool = False, cellw: Optional[bool] = None,
+              output_optical: bool = False, with_fluxes: bool = True,
+              check_inputs: bool = True, cellw: Optional[bool] = None,
               layer_major: Optional[bool] = None) -> dict:
         """sfc_alb_*: (ncol, nbnd); mu0: (ncol,); aermr: (ncol, nlay, 11).
-        Runs on the k-distribution's device.  ``cellw`` / ``layer_major``
-        choose the layout (module docstring; ``None``: from the
-        environment)."""
+        Runs on the k-distribution's device.  ``with_fluxes`` and
+        ``check_inputs`` as in :meth:`RadiationSolverLW.solve`; ``cellw`` /
+        ``layer_major`` choose the layout (module docstring; ``None``:
+        environment, tuned winner, default)."""
         dtype = self.kdist.dtype
-        self._validate(p_lay, p_lev, t_lay, col_dry=col_dry)
+        if check_inputs:
+            self._validate(p_lay, p_lev, t_lay, col_dry=col_dry)
         top_at_1 = self._detect_top(p_lay)
         with_clouds = lwp is not None
         with_aerosols = aermr is not None
@@ -439,5 +458,5 @@ class RadiationSolverSW(_SolverBase):
             output_bnd_fluxes=output_bnd_fluxes,
             with_clouds=with_clouds, with_aerosols=with_aerosols,
             delta_cloud=delta_cloud, delta_aerosol=delta_aerosol,
-            output_optical=output_optical, cellw=cellw,
-            layer_major=layer_major)
+            output_optical=output_optical, with_fluxes=with_fluxes,
+            cellw=cellw, layer_major=layer_major)

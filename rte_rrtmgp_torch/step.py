@@ -72,8 +72,9 @@ def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=None,
     sw_flux_dn, sw_flux_dn_dir, sw_flux_net}, each (ncol, nlev).
 
     ``cellw`` / ``layer_major`` choose the layout, i.e. which kernels run
-    (``models/radiation.py``); ``None`` reads ``RTE_RRTMGP_PALLAS_CELLW``
-    (default on) / ``RTE_RRTMGP_LAYERMAJOR`` (default off) at each call."""
+    (``models/radiation.py``); ``None`` reads ``RTE_RRTMGP_PALLAS_CELLW`` /
+    ``RTE_RRTMGP_LAYERMAJOR``, else the tuned winner for the tables' device
+    (``utils/tuner.py``), else on / off, at each call."""
     device, dtype = kd_lw.device, kd_lw.dtype
 
     def step(p_lay, p_lev, t_lay, t_lev, t_sfc, vmr, col_dry, emis_sfc,

@@ -8,6 +8,8 @@ card).  Run on a machine with an NVIDIA card with
 not use).  Tolerance: 1e-5 of each output's largest magnitude, for float32
 sums over g taken in another order than the twin's."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,9 @@ from rte_rrtmgp_torch.ops.kernels import gas_optics_interp as b1
 from rte_rrtmgp_torch.ops.kernels import interp_rows as b45
 from rte_rrtmgp_torch.ops.kernels import solvers as b23
 from rte_rrtmgp_torch.ops import gas_optics as go, rte_lw, rte_sw
+from rte_rrtmgp_torch import cli
+from rte_rrtmgp_torch.cases import inputs
+from rte_rrtmgp_torch.utils import ncio, tuner
 
 pytestmark = pytest.mark.gpu
 REL = 1e-5
@@ -354,3 +359,79 @@ def test_wrappers_refuse_float64_on_card(cuda):
                                     device=cuda),
                         torch.zeros((6, 2), dtype=torch.int32, device=cuda),
                         (je, je), (x2,) * 4)
+
+
+CLI_RUNS = {
+    "allsky_broadband": ("allsky", ["--cloud-optics", "--delta-cloud"],
+                         {"gas_optics_interp": 2, "lw_sweep": 1,
+                          "sw_2stream": 1}),
+    "aerosky_bybnd": ("aerosky", ["--cloud-optics", "--aerosol-optics",
+                                  "--delta-cloud", "--delta-aerosol",
+                                  "--output-bnd-fluxes"],
+                      {"gas_optics_interp": 2}),
+    "aerosky_optical": ("aerosky", ["--cloud-optics", "--aerosol-optics",
+                                    "--output-optical"],
+                        {"gas_optics_interp": 2, "lw_sweep": 1,
+                         "sw_2stream": 1}),
+}
+
+
+@pytest.mark.parametrize("run", list(CLI_RUNS))
+def test_cli_on_card_launches_kernels_and_matches_cpu(cuda, tmp_path,
+                                                      monkeypatch, run):
+    """The CLI on a small generated case (gpt_per_band=4, default layout;
+    broadband, by band with aerosols, optical output) launches the kernels
+    of its path on the card, and its output lies within 0.1 W m-2 (fluxes)
+    or 1e-5 of each array's largest value (optical properties and
+    sources) of the same CLI with ``--device cpu``."""
+    case, flags, expected = CLI_RUNS[run]
+    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
+    monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "0")
+    inputs.make_case_files(str(tmp_path), case, gpt_per_band=4)
+    monkeypatch.chdir(tmp_path)
+    kernels.reset_launch_counts()
+    assert cli.main(flags + ["--output", "card.nc"]) == 0
+    got = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert got == expected
+    assert cli.main(flags + ["--output", "cpu.nc", "--device", "cpu"]) == 0
+    with ncio.NcReader("card.nc") as a, ncio.NcReader("cpu.nc") as b:
+        assert sorted(a.variables()) == sorted(b.variables())
+        fluxes = [v for v in a.variables() if "_flux_" in v]
+        assert len(fluxes) == (14 if "bybnd" in run else 7)
+        for v in a.variables():
+            x, y = a.read(v).astype(np.float64), b.read(v)
+            err = np.abs(x - y).max()
+            tol = 0.1 if v in fluxes else REL * np.abs(y).max()
+            assert err <= tol, (v, err, tol)
+
+
+def test_ncio_round_trip_on_card_machine(cuda, tmp_path):
+    """Classic NetCDF written and read on the card's machine (no h5py
+    there), from and back onto the card."""
+    x = torch.randn(3, 5, device=cuda)
+    path = str(tmp_path / "x.nc")
+    with ncio.NcWriter(path) as nc:
+        nc.write("x", x.cpu().numpy(), ("a", "b"))
+        nc.write("n", np.arange(3, dtype=np.int64), ("a",))
+        nc.write_strings("names", ["lw", "sw"], "c")
+    with ncio.NcReader(path) as nc:
+        assert torch.equal(torch.from_numpy(nc.read("x")).to(cuda), x)
+        assert nc.read("n").tolist() == [0, 1, 2]
+        assert nc.read_strings("names") == ["lw", "sw"]
+
+
+def test_tuner_measures_on_card_and_persists(cuda, tmp_path, monkeypatch):
+    """``autotune`` times two candidates on the card (each call
+    synchronized) and persists the faster one under this card's kind."""
+    monkeypatch.setenv("RTE_RRTMGP_TUNER_CACHE", str(tmp_path / "t.json"))
+    monkeypatch.delenv("RTE_RRTMGP_TUNER_DISABLE", raising=False)
+    monkeypatch.setattr(tuner, "_memory_cache", {})
+    monkeypatch.setattr(tuner, "_disk_loaded", False)
+    x = torch.randn(1024, 1024, device=cuda)
+    build = lambda c: (lambda a: [a @ a for _ in range(c["n"])][-1])
+    best = tuner.autotune("toy", [{"n": 40}, {"n": 1}], build, (x,), iters=3)
+    assert best == {"n": 1}
+    table = json.load(open(tmp_path / "t.json"))
+    key = tuner.key("toy", None, "cuda:" + torch.cuda.get_device_name(cuda))
+    assert table[key]["config"] == {"n": 1} and len(table[key]["all"]) == 2
+

@@ -29,6 +29,7 @@ import torch
 from . import config
 from .models import (AerosolLUT, CloudLUT, GasConcs, KDist,
                      RadiationSolverLW, RadiationSolverSW)
+from .models.radiation import _host
 from .utils import status
 from .utils.ncio import NcReader, NcWriter
 
@@ -97,10 +98,6 @@ def _read_vmr(nc: NcReader, gas: str, gas_concs: GasConcs, nlay, ncol):
         gas_concs.set_vmr(gas, arr)
     else:
         gas_concs.set_vmr(gas, arr.reshape(nlay, ncol).T.copy())
-
-
-def _host(a) -> np.ndarray:
-    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
 def main(argv=None) -> int:

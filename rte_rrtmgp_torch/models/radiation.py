@@ -25,8 +25,8 @@ tables' device, then the default; ``config.cellw_enabled`` /
 * ``cellw=False``: one launch of the weight-plane kernel for the major
   gases (with planck_frac or krayl) and one for the minor gases when the
   chunk has minor intervals, then the same solver launches;
-* ``layer_major=True`` (with cellw on, fluxes and broadband output only, and a
-  k-distribution with minor intervals; otherwise the default layout): the
+* ``layer_major=True`` (with cellw on, fluxes and broadband output only,
+  and a k-distribution with minor intervals; otherwise the default layout): the
   per-cell-weight kernel on layer-major inputs, so every (N, G) plane has
   cell (c, l) at row l*ncol + c, then the layer-major solver kernels.
 

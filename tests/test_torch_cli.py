@@ -218,26 +218,44 @@ def test_rfmip_within_crosscheck_gate(tmp_path):
         assert np.abs(a.astype(np.float64) - b).max() <= F32_GATE_WM2, name
 
 
-def test_cli_profiling_trace_and_summary(case, tmp_path):
-    """``--profiling`` writes a chrome trace beside the output; the summary
-    tool sums device intervals (a union: overlapping copies count once) and
-    refuses a trace without device events (a CPU run's)."""
+def test_cli_profiling_trace_and_summary(case, tmp_path, monkeypatch):
+    """``--profiling`` traces one more solve of each spectrum and writes
+    the chrome trace beside the output (the profiler is stubbed here: its
+    start-up costs seconds on the CPU); the summary tool sums device
+    intervals as a union and refuses a trace without device events."""
     import gzip
     import json
+    import torch.profiler
     from rte_rrtmgp_torch.tools import trace_summary
 
+    traced = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.activities = activities
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def export_chrome_trace(self, path):
+            traced.append(self.activities)
+            with open(path, "w") as f:
+                json.dump({"traceEvents": [{"ph": "X", "cat": "cpu_op",
+                                            "name": "op", "ts": 0,
+                                            "dur": 5}]}, f)
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
     out = str(tmp_path / "p.nc")
-    cwd = os.getcwd()
-    os.chdir(case[0])
-    try:
-        assert cli.main(["--no-shortwave", "--profiling", "--device", "cpu",
-                         "--output", out]) == 0
-    finally:
-        os.chdir(cwd)
-    trace = str(tmp_path / "p_longwave_trace.json")
-    assert os.path.exists(trace)
-    with pytest.raises(ValueError, match="no device events"):
-        trace_summary.summarize(trace)
+    monkeypatch.chdir(case[0])
+    assert cli.main(["--profiling", "--device", "cpu", "--output", out]) == 0
+    assert traced == [[torch.profiler.ProfilerActivity.CPU]] * 2
+    for label in ("longwave", "shortwave"):
+        trace = str(tmp_path / f"p_{label}_trace.json")
+        with pytest.raises(ValueError, match="no device events"):
+            trace_summary.summarize(trace)
     fake = {"traceEvents": [
         {"ph": "X", "cat": "cpu_op", "name": "op", "ts": 0, "dur": 100},
         {"ph": "X", "cat": "kernel", "name": "k", "ts": 10, "dur": 20},

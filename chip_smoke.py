@@ -183,6 +183,7 @@ def expected_launches(kd_lw, kd_sw, gpt_chunk):
 
 
 def scaled(counts: dict, n: int) -> dict:
+    """Launch counts of ``n`` solves."""
     return {k: v * n for k, v in counts.items() if v}
 
 
@@ -219,8 +220,8 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
     gases = make_atmosphere(1, nlay)["gas_concs"].names()
     kd_lw = KDist.from_netcdf(paths["coefs_lw"], gases, device=dev)
     kd_sw = KDist.from_netcdf(paths["coefs_sw"], gases, device=dev)
-    for lw in (True, False):
-        CloudLUT.from_netcdf(paths["cloud_lw" if lw else "cloud_sw"], device=dev)
+    for k in ("cloud_lw", "cloud_sw"):
+        CloudLUT.from_netcdf(paths[k], device=dev)
     torch.cuda.synchronize()
     print(f"[cli] table load (LW + SW k-distributions and cloud tables from "
           f"NetCDF onto the card): {(time.perf_counter() - t0) * 1e3:.1f} ms")
@@ -325,7 +326,7 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    path = rfmip.run(CLI_DIR, device=dev)
+    path = rfmip.run(CLI_DIR, n_experiments=RFMIP_EXPERIMENTS, device=dev)
     dt = time.perf_counter() - t0
     got = {k: v for k, v in kernels.launch_counts().items() if v}
     expected = scaled(per_solve[layout], RFMIP_EXPERIMENTS)
@@ -343,7 +344,8 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
                     not np.isfinite(a).all() or a.min() < 0:
                 fail(f"rfmip {v}: shape {a.shape}, finite "
                      f"{np.isfinite(a).all()}, min {a.min()}")
-    print("[rfmip] rld/rlu/rsd/rsu finite and non-negative, (18, 61, 100)")
+    print(f"[rfmip] rld/rlu/rsd/rsu finite and non-negative, "
+          f"({RFMIP_EXPERIMENTS}, 61, 100)")
 
 
 def main(argv) -> int:

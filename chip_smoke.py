@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py            # about two minutes, builds the kernels
+    python3 chip_smoke.py            # a few minutes, builds the kernels
     python3 chip_smoke.py --profile  # adds a torch.profiler table per layout
 
 The flagship step (2048 columns x 72 layers, 256 LW + 224 SW g-points,
@@ -49,7 +49,20 @@ Phases (any failure ends the run with a nonzero exit):
    by-band files and ``check.compare`` between them at 5.8e-2 W m-2; then
    ``cases.rfmip.run`` (18 experiments x 100 sites x 60 layers), its
    launch counts, ms per experiment and fluxes.
-6. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
+6. The forward Monte-Carlo tracer (in ``build/chip_rt``): the MC workload
+   of ``bench.py`` (64x64x256, 32 photons a pixel, 1 g-point, fifo) through
+   ``tools/bench_rt.py`` at knull (4,4,4) and (32,48,48): photons/s, ms per
+   g-point, the steps and ms a step of each width phase, the flux at the
+   top exact and energy closed within ``RT_CLOSURE``; one profiled trace
+   cut at ``RT_PROFILE_STEPS`` (device events a step, busy share);
+   ``cli_rt`` on the ``rcemip``
+   atmosphere at 64x64x256 with one g-point (cloudy, cloudy with
+   ``--longwave`` — its kernel launches replayed against their twins —,
+   Mie clouds, clear sky), each timed as pass 1 + MC, held to its exact
+   launch counts and energy closure, the clear sky's surface fluxes within
+   ``RT_TWOSTREAM_TOL`` of the two-stream's; ``cli_rt_lite`` on the bench
+   optics; the tracer on the card against the CPU within 4 sigma.
+7. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
    that runs it in phase 4), then the last line ``{"ok": true, "device":
    {...}}``.
 """
@@ -73,6 +86,13 @@ STEP_TOL_WM2 = 0.1             # step with kernels vs twins / vs default
 CLI_DIR = os.path.join("build", "chip_cli")
 CLI_TIMINGS = 3                # --timings of the CLI runs
 RFMIP_EXPERIMENTS = 18
+RT_DIR = os.path.join("build", "chip_rt")
+RT_NX, RT_NZ, RT_PPP = 64, 256, 32   # bench.py's MC workload, the RCEMIP extent
+RT_GPT = 150                   # cli_rt --single-gpt: a visible band (10 of 14)
+RT_CLOSURE = 0.02              # MC energy closure (tests/test_radiation_rt.py)
+RT_TWOSTREAM_TOL = 0.05        # clear-sky MC vs two-stream (ibid.)
+RT_SEEDS = 6                   # card vs CPU: seeds on each side
+RT_PROFILE_STEPS = 256         # steps of the profiled trace
 N_ROUNDS, N_STEPS = 3, 5       # step timing
 SIGMA = 5.670374419e-8
 LAYOUTS = {"default": dict(cellw=True, layer_major=False),
@@ -346,6 +366,310 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
                      f"{np.isfinite(a).all()}, min {a.min()}")
     print(f"[rfmip] rld/rlu/rsd/rsu finite and non-negative, "
           f"({RFMIP_EXPERIMENTS}, 61, 100)")
+
+
+def closure(out, dz) -> float:
+    """Relative energy closure of MC fluxes: TOD up + net surface + the
+    column's absorption, against the incident flux (domain means)."""
+    import numpy as np
+
+    m = lambda a: float(np.asarray(a, np.float64).mean())
+    toa = m(out["tod_dn"])
+    absorbed = float((np.asarray(out["abs_dir"], np.float64)
+                      + np.asarray(out["abs_dif"], np.float64))
+                     .mean(axis=(1, 2)).sum() * dz)
+    return (m(out["tod_up"]) + m(out["sfc_dir"]) + m(out["sfc_dif"])
+            - m(out["sfc_up"]) + absorbed - toa) / toa
+
+
+def tracer_phase(dev, card, record, replay):
+    """6. The forward Monte-Carlo tracer: the MC workload of ``bench.py``
+    (through ``tools/bench_rt.py``) at both knull grids, one profiled
+    trace, ``cli_rt`` at the RCEMIP extent (pass 1 and MC timed apart,
+    exact gas-optics and LW launch counts, energy closure, clear sky
+    against the two-stream), ``cli_rt_lite`` at 64x64x256, and the tracer
+    on the card against the CPU.  Every line names the card."""
+    import numpy as np
+    import torch
+
+    from rte_rrtmgp_torch import cli_rt, cli_rt_lite, config
+    from rte_rrtmgp_torch.cases import inputs
+    from rte_rrtmgp_torch.cases.profiles import make_atmosphere
+    from rte_rrtmgp_torch.data import synthetic
+    from rte_rrtmgp_torch.models import KDist
+    from rte_rrtmgp_torch.models import radiation_rt, raytracer
+    from rte_rrtmgp_torch.ops import kernels
+    from rte_rrtmgp_torch.tools import bench_rt
+    from rte_rrtmgp_torch.utils.ncio import NcReader
+
+    tag = f"[rt] ({card})"
+    os.makedirs(RT_DIR, exist_ok=True)
+
+    # ---- the MC workload (bench.py:190-225) ----
+    ppp, n_photons = RT_PPP, RT_NX * RT_NX * RT_PPP
+    # One timed trace each, no warm-up trace: a trace is seconds of
+    # host-bound steps, and phases 1-5 have warmed the card and allocator.
+    for kn in ((4, 4, 4), (32, 48, 48)):
+        res = bench_rt.measure_mc(nx=RT_NX, nz=RT_NZ, ppp=ppp, kn=kn,
+                                  iters=1, reps=1, device=dev, warmup=False)
+        aux, out = res["aux"], res["out"]
+        print(f"{tag} MC {RT_NX}x{RT_NX}x{RT_NZ}, {ppp} ppp, 1 g-point, "
+              f"knull {kn}, {aux['respawn_mode']}: {res['value']:.1f} "
+              f"photons/s, {res['ms_per_gpt']:.2f} ms per g-point (one "
+              f"synchronized trace); {aux['n_lanes']} lanes x "
+              f"{aux['ppl']} photons a lane, {aux['steps']} steps")
+        prev = 0
+        for w, s_end, ms in zip(aux["phase_widths"], aux["phase_steps"],
+                                aux["phase_ms"]):
+            n = s_end - prev
+            prev = s_end
+            print(f"{tag}   width {w}: {n} steps, "
+                  f"{ms / max(n, 1):.3f} ms a step (host clock, {ms:.1f} ms)")
+        got = {k: getattr(out, "flux_" + k) for k in
+               ("sfc_dir", "sfc_dif", "sfc_up", "tod_up", "abs_dir",
+                "abs_dif")}
+        got["tod_dn"] = out.flux_toa_down
+        sfc = (got["sfc_dir"] + got["sfc_dif"]).double()
+        if not (bool(torch.isfinite(sfc).all()) and float(sfc.min()) >= 0
+                and float(sfc.mean()) > 0):
+            fail(f"MC knull {kn}: surface fluxes not finite, non-negative "
+                 "and of positive mean")
+        toa = float(got["tod_dn"].double().mean())
+        if abs(toa - bench_rt.TOD_FLUX) > 1e-5 * bench_rt.TOD_FLUX:
+            fail(f"MC knull {kn}: flux_toa_down {toa}, exact "
+                 f"{bench_rt.TOD_FLUX}")
+        c = closure({k: v.cpu().numpy() for k, v in got.items()},
+                    bench_rt.GRID_D[0])
+        print(f"{tag}   toa_down {toa:.4f} W m-2 (exact {bench_rt.TOD_FLUX}), "
+              f"energy closure {c:+.4%}")
+        if abs(c) > RT_CLOSURE:
+            fail(f"MC knull {kn}: energy closure {c:+.4%}")
+
+    # One profiled trace, cut at RT_PROFILE_STEPS steps (all in the widest
+    # phase; a whole trace under the profiler takes minutes): device events
+    # a step and the card's busy time (the kernels' summed device time),
+    # against the profiled span and against the same trace unprofiled
+    # (the profiler slows the host).
+    from torch.profiler import ProfilerActivity, profile
+
+    fields = [torch.as_tensor(f, device=dev)
+              for f in bench_rt.make_fields(RT_NZ, RT_NX, RT_NX)]
+    alb = torch.full((RT_NX, RT_NX), bench_rt.ALBEDO, device=dev)
+    sun = raytracer.sun_direction_from_angles(bench_rt.SZA, 0.0)
+    trace = lambda seed: raytracer.trace_rays(
+        seed, *fields, None, alb, (4, 4, 4), bench_rt.GRID_D,
+        bench_rt.TOD_FLUX, 0.0, sun, photons_per_pixel=ppp,
+        respawn_mode="fifo", max_steps=RT_PROFILE_STEPS, return_aux=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace(7)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, aux = trace(7)
+        torch.cuda.synchronize()
+    span = (time.perf_counter() - t0) * 1e3
+    dev_rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in dev_rows) / 1e3
+    events = sum(e.count for e in dev_rows)
+    print(f"{tag} profiled trace (knull (4,4,4), its first {aux['steps']} "
+          f"steps, width {aux['phase_widths'][0]}): device busy {busy:.1f} "
+          f"ms in a profiled span of {span:.1f} ms ({busy / span:.1%}) and "
+          f"{busy / plain_ms:.1%} of the same steps unprofiled "
+          f"({plain_ms:.1f} ms, {plain_ms / aux['steps']:.3f} ms a step); "
+          f"{events} device events, {events / aux['steps']:.1f} a step")
+    for e in dev_rows[:6]:
+        print(f"{tag}   {e.device_time_total / 1e3:9.3f} ms {e.count:7d}x "
+              f"{e.key[:90]}")
+    del fields, prof, dev_rows
+
+    # ---- cli_rt at the RCEMIP extent ----
+    t0 = time.perf_counter()
+    paths = inputs.make_case_files(RT_DIR, "rcemip", gpt_per_band=GPT_PER_BAND)
+    atm = make_atmosphere(RT_NX * RT_NX, RT_NZ, seed=0, perturb=True)
+    inputs.write_input_nc(paths["input"], atm, RT_NX, RT_NX,
+                          rt_grid={"nz": RT_NZ, "ngrid_x": 4, "ngrid_y": 4,
+                                   "ngrid_z": 4})
+    mie = os.path.join(RT_DIR, "mie_lut_broadband.nc")
+    synthetic.write_mie_nc(mie, synthetic.make_mie_raw())
+    with NcReader(paths["input"]) as nc:
+        z = nc.read("z")
+    dz = float(z[1] - z[0])
+    print(f"{tag} cli_rt case: rcemip atmosphere {RT_NX}x{RT_NX} columns x "
+          f"{RT_NZ} layers, rt grid nz {RT_NZ} knull (4,4,4), dz {dz:.2f} m; "
+          f"files {time.perf_counter() - t0:.2f} s")
+    gases = make_atmosphere(1, RT_NZ)["gas_concs"].names()
+    kd_lw = KDist.from_netcdf(paths["coefs_lw"], gases, device=dev)
+    kd_sw = KDist.from_netcdf(paths["coefs_sw"], gases, device=dev)
+    band = kd_sw.gpt2band[RT_GPT - 1]
+    cellw = config.cellw_enabled(dev)
+    lm = cellw and config.layer_major_enabled(dev)
+
+    def gas(kd):
+        if cellw:
+            return {"gas_optics_interp": 1}
+        minor = bool(kd.minor_lower or kd.minor_upper)
+        return {"interp_rows_multi": 1, **({"interp_rows": 1} if minor else {})}
+
+    def add(*ds):
+        out = {}
+        for d in ds:
+            for k, v in d.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    sw_counts = gas(kd_sw.slice_gpt(RT_GPT - 1, RT_GPT))
+    lw_counts = add(gas(kd_lw), {"lw_sweep_lm" if lm else "lw_sweep": 1})
+    files = ["--input", paths["input"], "--coefs-sw", paths["coefs_sw"],
+             "--coefs-lw", paths["coefs_lw"], "--cloud-sw", paths["cloud_sw"],
+             "--cloud-lw", paths["cloud_lw"], "--mie-file", mie]
+    base = ["--raytracing", str(RT_PPP), "--two-stream", "--single-gpt",
+            str(RT_GPT)]
+    runs = {
+        "cloudy": (["--cloud-optics", "--delta-cloud"], sw_counts),
+        "cloudy_longwave": (["--cloud-optics", "--delta-cloud", "--longwave"],
+                            add(sw_counts, lw_counts)),
+        "mie": (["--cloud-mie", "--liq-cloud-optics", "--delta-cloud"],
+                sw_counts),
+        "clear": ([], sw_counts),
+    }
+    print(f"{tag} cli_rt flags {' '.join(base)} (g-point {RT_GPT}, band "
+          f"{band + 1}); layout cellw {cellw}, layer_major {lm}")
+    timing = {}
+    orig_pass1 = radiation_rt._pass1
+    orig_solve = radiation_rt.RadiationSolverRT.solve
+
+    def timed_pass1(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = orig_pass1(*a, **kw)
+        torch.cuda.synchronize()
+        timing["pass1"] = timing.get("pass1", 0.0) + time.perf_counter() - t
+        return r
+
+    def timed_solve(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = orig_solve(self, *a, **kw)
+        torch.cuda.synchronize()
+        timing["solve"] = time.perf_counter() - t
+        return r
+
+    timers = Patch((radiation_rt, "_pass1", timed_pass1),
+                   (radiation_rt.RadiationSolverRT, "solve", timed_solve))
+    for name, (flags, expected) in runs.items():
+        out_path = os.path.join(RT_DIR, f"out_{name}.nc")
+        argv = files + base + flags + ["--output", out_path]
+        timing.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        rcs = []
+        with timers:
+            if name == "cloudy_longwave":
+                calls = record(lambda: rcs.append(cli_rt.main(argv)))
+            else:
+                rcs.append(cli_rt.main(argv))
+        rc = rcs[0]
+        torch.cuda.synchronize()
+        got = {k: v for k, v in kernels.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        solve_ms, p1_ms = timing["solve"] * 1e3, timing["pass1"] * 1e3
+        print(f"{tag} cli_rt {name}: rc {rc}, {solve_ms:.1f} ms a solve = "
+              f"pass 1 (gas optics, two-stream) {p1_ms:.1f} ms + MC "
+              f"{solve_ms - p1_ms:.1f} ms; peak device memory {peak:.3f} GiB; "
+              f"launches {got}")
+        if rc != 0 or got != expected:
+            fail(f"cli_rt {name}: rc {rc}, launches {got}, expected {expected}")
+        with NcReader(out_path) as nc:
+            o = {k: nc.read("rt_flux_" + k) for k in
+                 ("tod_dn", "tod_up", "sfc_dir", "sfc_dif", "sfc_up",
+                  "abs_dir", "abs_dif")}
+            ts_dn, ts_dir = nc.read("sw_flux_dn")[0], nc.read("sw_flux_dn_dir")[0]
+            if name == "cloudy_longwave":
+                lw_up = nc.read("lw_flux_up")
+                if not np.isfinite(lw_up).all() or lw_up.min() <= 0:
+                    fail("cli_rt --longwave: lw_flux_up not finite and positive")
+        if not all(np.isfinite(v).all() for v in o.values()):
+            fail(f"cli_rt {name}: non-finite MC fluxes")
+        c = closure(o, dz)
+        mc_sfc = float((o["sfc_dir"] + o["sfc_dif"]).astype(np.float64).mean())
+        mc_dir = float(o["sfc_dir"].astype(np.float64).mean())
+        msg = (f"{tag} cli_rt {name}: energy closure {c:+.4%}; surface MC "
+               f"{mc_sfc:.3f} (direct {mc_dir:.3f}) vs two-stream "
+               f"{float(ts_dn.mean()):.3f} ({float(ts_dir.mean()):.3f}) W m-2")
+        print(msg)
+        if abs(c) > RT_CLOSURE:
+            fail(f"cli_rt {name}: energy closure {c:+.4%}")
+        if name == "clear":
+            for what, a, b in (("total", mc_sfc, float(ts_dn.mean())),
+                               ("direct", mc_dir, float(ts_dir.mean()))):
+                if abs(a - b) > RT_TWOSTREAM_TOL * b:
+                    fail(f"cli_rt clear sky: MC {what} {a:.3f} vs two-stream "
+                         f"{b:.3f} W m-2")
+        if name == "cloudy_longwave":
+            for kname, recs in calls.items():
+                if recs:
+                    replay(kname, recs, "cli_rt")
+            del calls
+
+    # ---- cli_rt_lite on the bench optics ----
+    lite_in = os.path.join(RT_DIR, "rt_lite_input.nc")
+    lite_out = os.path.join(RT_DIR, "rt_lite_output.nc")
+    bench_rt.write_lite_input(lite_in, RT_NZ, RT_NX, RT_NX)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_rt_lite.main(["--input", lite_in, "--output", lite_out,
+                           "--raytracing", str(RT_PPP)])
+    dt = time.perf_counter() - t0
+    with NcReader(lite_out) as nc:
+        o = {k: nc.read("flux_" + k) for k in
+             ("tod_dn", "tod_up", "sfc_dir", "sfc_dif", "sfc_up", "abs_dir",
+              "abs_dif")}
+    c = closure(o, bench_rt.GRID_D[0])
+    print(f"{tag} cli_rt_lite {RT_NX}x{RT_NX}x{RT_NZ}, {RT_PPP} ppp: rc {rc}, "
+          f"{dt * 1e3:.1f} ms (read, trace, write); energy closure {c:+.4%}")
+    if rc != 0 or abs(c) > RT_CLOSURE:
+        fail(f"cli_rt_lite: rc {rc}, energy closure {c:+.4%}")
+
+    # ---- the tracer on the card against the CPU ----
+    rng = np.random.default_rng(2)
+    shape = (8, 6, 6)
+    kg = rng.uniform(1e-5, 1e-4, shape)
+    cld = np.where(rng.random(shape) < 0.4, rng.uniform(1e-3, 5e-3, shape), 0.0)
+    small = [kg + cld, 0.5 * kg, 0.99 * cld, np.zeros(shape),
+             np.where(cld > 0, 0.85, 0.0), np.zeros(shape)]
+    alb_s = rng.uniform(0.05, 0.3, shape[1:])
+
+    def means(device, seed):
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        o = raytracer.trace_rays(seed, *map(t, small), None, t(alb_s),
+                                 (2, 2, 2), (500.0, 800.0, 700.0), 900.0,
+                                 100.0, raytracer.sun_direction_from_angles(
+                                     0.6, 0.3), photons_per_pixel=64)
+        return {n: float(getattr(o, n).double().mean()) for n in o._fields}
+
+    card_runs = [means(dev, s) for s in range(RT_SEEDS)]
+    cpu_runs = [means(torch.device("cpu"), s) for s in range(RT_SEEDS)]
+    worst = 0.0
+    for name in card_runs[0]:
+        a = np.array([r[name] for r in card_runs])
+        b = np.array([r[name] for r in cpu_runs])
+        sigma = np.sqrt((a.var(ddof=1) + b.var(ddof=1)) / RT_SEEDS)
+        diff = abs(a.mean() - b.mean())
+        worst = max(worst, diff / sigma if sigma > 0 else 0.0)
+        print(f"{tag} card vs CPU {shape}, 64 ppp, {RT_SEEDS} seeds each: "
+              f"{name} {a.mean():.5f} vs {b.mean():.5f} (sigma of the "
+              f"difference {sigma:.2e})")
+        if diff > 4 * sigma + 1e-6 * abs(b.mean()):
+            fail(f"tracer card vs CPU: {name} {a.mean()} vs {b.mean()}, "
+                 f"4 sigma = {4 * sigma}")
+    print(f"{tag} card vs CPU: every domain mean within 4 sigma (largest "
+          f"{worst:.2f} sigma)")
 
 
 def main(argv) -> int:
@@ -750,7 +1074,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     cli_phase(dev, twins, record, replay, lw_scratch)
 
-    # ---- 6. result lines ----
+    # ---- 6. the forward Monte-Carlo tracer ----
+    torch.cuda.empty_cache()
+    tracer_phase(dev, card, record, replay)
+
+    # ---- 7. result lines ----
     rows = []
     for name, meta in KERNEL_INFO.items():
         layout = meta["layout"]

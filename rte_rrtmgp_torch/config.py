@@ -8,9 +8,10 @@ The dtype guards are those of the reference's FP64/FP32 builds
 * ``eps`` / ``tiny`` are machine epsilon / the smallest normal number;
 * ``tau_thres`` switches the LW linear-in-tau source to its series.
 
-Kernel dispatch is by tensor device: a CUDA tensor goes through the
-hand-written kernels of ``ops/kernels``, a CPU tensor through their plain
-PyTorch twins.  There is no switch that turns the kernels off on the card.
+Kernel dispatch is by tensor device and dtype: a float32 CUDA tensor goes
+through the hand-written kernels of ``ops/kernels``, a CPU or float64
+tensor through their plain PyTorch twins (the JAX package's rule: Pallas
+for float32, XLA for float64).  There is no switch that turns the kernels off on the card.
 The two layout switches below choose WHICH kernels a step runs
 (:func:`cellw_enabled`, :func:`layer_major_enabled`): the environment, else
 the winner the tuner persisted for the device kind, else the default.

@@ -447,3 +447,61 @@ def write_aerosol_nc(path: str, raw: dict) -> None:
         for k in ("mass_ext_sw_hydrophilic", "ssa_sw_hydrophilic",
                   "asymmetry_sw_hydrophilic"):
             nc.write(k, raw[k], ("hydrophilic", "relative_humidity", "band_sw"))
+
+
+def make_mie_raw(seed: int = 0, nbnd: int = 14, n_re: int = 20,
+                 n_mie: int = 40, n_ang: int = 181) -> dict:
+    """Synthetic Mie phase-function LUT in the reference's
+    ``mie_lut_broadband.nc`` layout (Radiation_solver_rt.cu:652-666 for the
+    cdf tables; Radiation_solver_bw.cu:740-764 adds the phase-value pair):
+    ``phase_cdf`` (nbnd, n_mie) strictly descending 1 -> 0,
+    ``phase_cdf_angle`` (nbnd, n_re, n_mie) scattering angles (radians)
+    increasing from forward (0) to backward (pi) with a forward-peaked
+    HG-like shape that sharpens with effective radius, plus — for the
+    backward tracer's next-event estimation — ``phase`` (nbnd, n_re, n_ang)
+    phase VALUES on the shared uniform angle grid ``phase_angle`` (n_ang,)
+    spanning [0, pi].  The synthetic phase values are the same per-r_eff HG
+    lobes that generated the cdf, so Mie sampling + Mie NEE are mutually
+    consistent and analytically checkable."""
+    rng = np.random.default_rng(seed)
+    cdf = np.linspace(1.0, 0.0, n_mie)[None, :] ** np.linspace(
+        1.0, 1.5, nbnd)[:, None]                      # descending per band
+    g = np.linspace(0.70, 0.92, n_re)                 # sharper for larger r_eff
+    # invert HG cdf on the descending grid per (band, r_eff)
+    u = np.clip(cdf, 1e-6, 1.0)
+    ang = np.empty((nbnd, n_re, n_mie))
+    for ir, gg in enumerate(g):
+        cos_t = (1.0 + gg * gg
+                 - ((1.0 - gg * gg) / (1.0 - gg + 2.0 * gg * u)) ** 2) / (2.0 * gg)
+        ang[:, ir, :] = np.arccos(np.clip(cos_t, -1.0, 1.0))
+    # phase VALUES: HG(g(r_eff)) on the uniform angle grid, band-constant
+    phase_angle = np.linspace(0.0, np.pi, n_ang)
+    cos_a = np.cos(phase_angle)
+    phase = np.empty((nbnd, n_re, n_ang))
+    for ir, gg in enumerate(g):
+        denom = np.maximum(1e-7, 1.0 + gg * gg - 2.0 * gg * cos_a)
+        phase[:, ir, :] = (1.0 / (4.0 * np.pi) * (1.0 - gg * gg)
+                           / (denom * np.sqrt(denom)))[None, :]
+    return {"phase_cdf": cdf, "phase_cdf_angle": ang,
+            "phase": phase, "phase_angle": phase_angle,
+            "r_eff": 2.5 + np.arange(n_re, dtype=float),
+            "g_of_re": g}
+
+
+def write_mie_nc(path: str, raw: dict) -> None:
+    from ..utils.ncio import NcWriter
+
+    nbnd, n_re, n_mie = raw["phase_cdf_angle"].shape
+    with NcWriter(path) as nc:
+        nc.def_dim("band_sw", nbnd)
+        nc.def_dim("r_eff", n_re)
+        nc.def_dim("n_ang_cdf", n_mie)
+        nc.write("r_eff2", raw["r_eff"], ("r_eff",))
+        nc.write("phase_cdf", raw["phase_cdf"], ("band_sw", "n_ang_cdf"))
+        nc.write("phase_cdf_angle", raw["phase_cdf_angle"],
+                 ("band_sw", "r_eff", "n_ang_cdf"))
+        if "phase" in raw:
+            n_ang = raw["phase"].shape[-1]
+            nc.def_dim("n_ang", n_ang)
+            nc.write("phase", raw["phase"], ("band_sw", "r_eff", "n_ang"))
+            nc.write("phase_angle", raw["phase_angle"], ("n_ang",))

@@ -19,8 +19,9 @@ Port of the reference gas-optics kernels
     :func:`_minor_prep`) and read by ``csrc/interp_rows.cu``: the
     ``cellw=False`` step and the single-quantity functions
     :func:`tau_major`, :func:`planck_fraction`, :func:`tau_minor` and
-    :func:`tau_rayleigh` on CUDA tensors (for CPU tensors those four run
-    their plain bodies); :func:`interp_rows_plain` is the kernel's twin;
+    :func:`tau_rayleigh` on float32 CUDA tensors (for CPU or float64
+    tensors those four run their plain bodies); :func:`interp_rows_plain`
+    is the kernel's twin;
 * the Planck sources (:196-314) — also on layer-major planes
   (:func:`planck_source_lm`) — the Rayleigh/absorption combination
   (:721-746), the column amounts (``src/Gas_optics_rrtmgp.cpp:764-792``)
@@ -42,7 +43,7 @@ from ..models.types import OpticalProps1scl, OpticalProps2str, SourceFuncLW
 from .fluxes import expand_bands_to_gpt
 from .kernels import gas_optics_interp as _b1
 from .kernels import interp_rows as _b45
-from .kernels._checks import on_cpu
+from .kernels._checks import takes_twin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,9 +298,10 @@ def _interp3d_rows_planes(kd: KDist, table_rows, interp: Interp,
 
 
 def tau_major(kd: KDist, interp: Interp):
-    """tau from major gases: (ncol, nlay, ngpt).  CUDA tensors: one launch
-    of the weight-plane kernel; CPU tensors: the plain body."""
-    if on_cpu(kd.kmajor_rows):
+    """tau from major gases: (ncol, nlay, ngpt).  float32 CUDA tensors: one
+    launch of the weight-plane kernel; CPU or float64 tensors: the plain
+    body."""
+    if takes_twin(kd.kmajor_rows):
         return _interp3d_rows(kd, kd.kmajor_rows, interp, scale_by_colmix=True)
     return _interp3d_rows_planes(kd, kd.kmajor_rows, interp, True)
 
@@ -307,7 +309,7 @@ def tau_major(kd: KDist, interp: Interp):
 def planck_fraction(kd: KDist, interp: Interp):
     """Planck fraction per g-point: (ncol, nlay, ngpt).  Dispatches as
     :func:`tau_major`."""
-    if on_cpu(kd.planck_rows):
+    if takes_twin(kd.planck_rows):
         return _interp3d_rows(kd, kd.planck_rows, interp,
                               scale_by_colmix=False)
     return _interp3d_rows_planes(kd, kd.planck_rows, interp, False)
@@ -491,10 +493,9 @@ def _tau_minor_planes(kd: KDist, interp: Interp, play, tlay, col_gas, tau):
 
 
 def tau_minor(kd: KDist, interp: Interp, play, tlay, col_gas, tau):
-    """Minor-gas optical depth, both atmospheres; adds into ``tau``.  CUDA
-    tensors: one launch of the weight-plane kernel; CPU tensors: the plain
-    body."""
-    if on_cpu(tau):
+    """Minor-gas optical depth, both atmospheres; adds into ``tau``.
+    Dispatches as :func:`tau_major`."""
+    if takes_twin(tau):
         return _add_minor(kd, interp,
                           minor_scaling(kd, interp, play, tlay, col_gas), tau)
     return _tau_minor_planes(kd, interp, play, tlay, col_gas, tau)
@@ -528,10 +529,9 @@ def tau_majmin_and_rayleigh(kd: KDist, interp: Interp, play, tlay, col_gas,
 
 def tau_rayleigh(kd: KDist, interp: Interp, col_gas, col_dry):
     """Rayleigh scattering optical depth (compute_tau_rayleigh_kernel
-    :674-718).  CUDA tensors: one launch of the weight-plane kernel; CPU
-    tensors: the plain body."""
+    :674-718).  Dispatches as :func:`tau_major`."""
     fac = (col_gas[:, :, kd.idx_h2o] + col_dry)[:, :, None]
-    if on_cpu(kd.krayl_rows):
+    if takes_twin(kd.krayl_rows):
         return _krayl_interp(kd, interp) * fac
     C, L = interp.tropo.shape
     jes, fms = _kernel_resolves(kd, interp)

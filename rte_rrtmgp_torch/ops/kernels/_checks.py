@@ -5,10 +5,12 @@ from __future__ import annotations
 import torch
 
 
-def on_cpu(t: torch.Tensor) -> bool:
-    """True when ``t`` lies on the CPU: the wrapper then takes the plain
-    PyTorch twin.  Any other device goes to the kernel or raises."""
-    return t.device.type == "cpu"
+def takes_twin(t: torch.Tensor) -> bool:
+    """True when the wrapper takes its plain PyTorch twin: ``t`` lies on the
+    CPU, or it is float64 (the JAX package's dtype rule: its Pallas kernels
+    run for float32 only and float64 stays on the accelerator through XLA).
+    A float32 tensor on a card goes to the kernel or raises."""
+    return t.device.type == "cpu" or t.dtype == torch.float64
 
 
 def require(name: str, t: torch.Tensor, device: torch.device, dtype,
@@ -19,7 +21,7 @@ def require(name: str, t: torch.Tensor, device: torch.device, dtype,
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype} "
-                        "(the CUDA kernels are float32; float64 runs on the CPU)")
+                        "(the CUDA kernels are float32; float64 takes the plain twin)")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

@@ -18,7 +18,7 @@ import functools
 import torch
 
 from . import _build
-from ._checks import on_cpu, require, stream_handle
+from ._checks import takes_twin, require, stream_handle
 
 TILE_CELLS = 32     # cells a block (measured: PERF.md §6, PR 3)
 THREADS = 256       # threads a block
@@ -123,7 +123,7 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
     scaling in :func:`gas_optics.minor_specs` order."""
     from .. import gas_optics
 
-    if on_cpu(kd.kmajor_rows):
+    if takes_twin(kd.kmajor_rows):
         return gas_optics.majmin_plain(kd, interp, sc, rayleigh)
 
     dev = kd.kmajor_rows.device

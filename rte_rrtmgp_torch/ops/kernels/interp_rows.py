@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._checks import on_cpu, require, stream_handle
+from ._checks import takes_twin, require, stream_handle
 
 
 def _launch(name, tables, rows_list, jes, fms, fp, cms_list):
@@ -80,7 +80,7 @@ def interp_rows_multi(tables, rows_list, jes, fms, fp, cms_list):
                                          == len(cms_list)):
         raise ValueError("interp_rows_multi: one or two tables, each with "
                          "its rows and col_mix planes (or None)")
-    if on_cpu(jes[0]):
+    if takes_twin(fms[0]):
         from ..gas_optics import interp_rows_plain
         return interp_rows_plain(tables, rows_list, jes, fms, fp, cms_list)
     return _launch("interp_rows_multi", tables, rows_list, jes, fms, fp,
@@ -89,7 +89,7 @@ def interp_rows_multi(tables, rows_list, jes, fms, fp, cms_list):
 
 def interp_rows(table, rows, jes, fms, fp=None, cms=None):
     """One table interpolated over precomputed weight planes: (N, G)."""
-    if on_cpu(jes[0]):
+    if takes_twin(fms[0]):
         from ..gas_optics import interp_rows_plain
         return interp_rows_plain([table], [rows], jes, fms, fp, [cms])[0]
     return _launch("interp_rows", [table], [rows], jes, fms, fp, [cms])[0]

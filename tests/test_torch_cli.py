@@ -18,7 +18,7 @@ same flags:
 Also: the port's input writer and case generator give JAX's arrays;
 ``--no-fluxes`` writes no flux variable; the checker tells cloud from no
 cloud; the CLI refuses to run without a card unless given ``--device cpu``
-and refuses float64 on the card before reading a table; ``rfmip.run``
+(float64 included) before reading a table; ``rfmip.run``
 (float32 by design) within 0.7 W m-2 of JAX's.
 """
 
@@ -195,15 +195,19 @@ def test_cli_refuses_to_run_without_a_card(case, monkeypatch):
 
 def test_cli_refuses_float64_on_the_card_before_reading(case, monkeypatch,
                                                        capsys):
+    """float64 on the card is a valid request now (the wrappers take their
+    plain twins there); the only refusal left is the missing card, and it
+    comes before any file is read."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opened = []
     monkeypatch.setattr(cli, "NcReader",
                         lambda *a, **kw: opened.append(a) or 1 / 0)
     monkeypatch.setattr(cli.KDist, "from_netcdf",
                         lambda *a, **kw: opened.append(a) or 1 / 0)
-    with pytest.raises(SystemExit):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--precision", "float64", "--device", "cuda"])
     assert not opened
-    assert "--device cpu" in capsys.readouterr().err
+    assert "--device cpu" not in capsys.readouterr().err
 
 
 def test_rfmip_within_crosscheck_gate(tmp_path):

@@ -6,9 +6,13 @@ card).  Run on a machine with an NVIDIA card with
 
 (``--noconftest``: the shared conftest configures JAX, which these tests do
 not use).  Tolerance: 1e-5 of each output's largest magnitude, for float32
-sums over g taken in another order than the twin's."""
+sums over g taken in another order than the twin's.  Also on the card:
+float64 through the twins (the golden case within its 5.8e-2 W m-2 gate,
+no launch), the forward tracer against the CPU (statistical) and
+``cli_rt`` with its gas-optics launch counts."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -19,8 +23,13 @@ from rte_rrtmgp_torch.ops.kernels import gas_optics_interp as b1
 from rte_rrtmgp_torch.ops.kernels import interp_rows as b45
 from rte_rrtmgp_torch.ops.kernels import solvers as b23
 from rte_rrtmgp_torch.ops import gas_optics as go, rte_lw, rte_sw
-from rte_rrtmgp_torch import cli
+from rte_rrtmgp_torch import cli, cli_rt
 from rte_rrtmgp_torch.cases import inputs
+from rte_rrtmgp_torch.cases.profiles import make_atmosphere
+from rte_rrtmgp_torch.data import synthetic
+from rte_rrtmgp_torch.models import (AerosolLUT, CloudLUT, KDist,
+                                     RadiationSolverLW, RadiationSolverSW,
+                                     raytracer)
 from rte_rrtmgp_torch.utils import ncio, tuner
 
 pytestmark = pytest.mark.gpu
@@ -340,25 +349,149 @@ def test_sw_2stream_lm(cuda, G):
         _assert_close(a, b, name)
 
 
-def test_wrappers_refuse_float64_on_card(cuda):
-    x = torch.zeros((2, 3, 4), dtype=torch.float64, device=cuda)
+def test_wrappers_take_twins_for_float64_on_card(cuda):
+    """float64 on the card takes the plain twins (the JAX package's dtype
+    rule) and counts no launch; a dtype the kernels do not take still
+    raises."""
+    rng = np.random.default_rng(5)
+    t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=cuda)
+    ncol, nlay, G = 2, 3, 4
+    lw = [t(rng.uniform(0, 2, (ncol, nlay, G))),
+          t(rng.uniform(0, 5, (ncol, nlay, G))),
+          t(rng.uniform(0, 5, (ncol, nlay + 1, G)))] + [
+        t(rng.uniform(0.5, 1, (ncol, G))) for _ in range(4)]
+    sw = [t(rng.uniform(0, 2, (nlay * ncol, G))),
+          t(rng.uniform(0, 1, (nlay * ncol, G))),
+          t(rng.uniform(0, 0.9, (nlay * ncol, G))),
+          t(rng.uniform(0.1, 1, ncol))] + [
+        t(rng.uniform(0, 0.5, (ncol, G))) for _ in range(3)]
+    je = torch.zeros((6, G), dtype=torch.int32, device=cuda)
+    rows = [t(rng.uniform(0, 1, (3, 5, G))),
+            torch.zeros((6, 2), dtype=torch.int32, device=cuda), (je, je),
+            tuple(t(rng.uniform(0, 1, (6, G))) for _ in range(4))]
+    kernels.reset_launch_counts()
+    got = (b23.lw_sweep(*lw, D=1.66, w=1.0), b23.sw_2stream_lm(*sw, ncol=ncol),
+           (b45.interp_rows(*rows),))
+    assert not any(kernels.launch_counts().values())
+    ref = (rte_lw.lw_sweep_plain(*lw, 1.66, 1.0),
+           rte_sw.sw_2stream_lm_plain(*sw, ncol=ncol),
+           (go.interp_rows_plain([rows[0]], [rows[1]], *rows[2:], None,
+                                 [None])[0],))
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            assert a.dtype == torch.float64 and a.device.type == "cuda"
+            assert torch.equal(a, b)
     with pytest.raises(TypeError):
-        b23.lw_sweep(x, x, torch.zeros((2, 4, 4), dtype=torch.float64,
-                                       device=cuda),
-                     *[torch.zeros((2, 4), dtype=torch.float64, device=cuda)] * 4,
+        b23.lw_sweep(*[x.half() for x in lw], D=1.66, w=1.0)
+    with pytest.raises(ValueError):
+        b23.lw_sweep(lw[0].float(), *[x.float().cpu() for x in lw[1:]],
                      D=1.66, w=1.0)
-    x2 = torch.zeros((6, 4), dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError):
-        b23.sw_2stream_lm(x2, x2, x2, torch.ones(2, dtype=torch.float64,
-                                                  device=cuda),
-                          *[torch.zeros((2, 4), dtype=torch.float64,
-                                        device=cuda)] * 3, ncol=2)
-    je = torch.zeros((6, 4), dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError):
-        b45.interp_rows(torch.zeros((3, 5, 4), dtype=torch.float64,
-                                    device=cuda),
-                        torch.zeros((6, 2), dtype=torch.int32, device=cuda),
-                        (je, je), (x2,) * 4)
+
+
+def test_golden_case_float64_on_card(cuda):
+    """The golden case (tests/golden_case.py) through the port in float64
+    on the card lies within the reference CI gate of the frozen goldens,
+    with every kernel wrapper on its twin (no launch)."""
+    import golden_case
+
+    f64 = torch.float64
+    gases = golden_case.GOLDEN_GASES
+    kd_lw = KDist.from_raw(synthetic.make_kdist_raw(True, gpt_per_band=4),
+                           gases, dtype=f64, device=cuda)
+    kd_sw = KDist.from_raw(synthetic.make_kdist_raw(False, gpt_per_band=4),
+                           gases, dtype=f64, device=cuda)
+    cl_lw = CloudLUT.from_raw(synthetic.make_cloud_raw(True), dtype=f64,
+                              device=cuda)
+    cl_sw = CloudLUT.from_raw(synthetic.make_cloud_raw(False), dtype=f64,
+                              device=cuda)
+    alut = AerosolLUT.from_raw(synthetic.make_aerosol_raw(), dtype=f64,
+                               device=cuda)
+    atm = make_atmosphere(golden_case.NCOL, golden_case.NLAY, seed=7)
+    emis = np.full((golden_case.NCOL, kd_lw.nbnd), 0.98)
+    alb = np.full((golden_case.NCOL, kd_sw.nbnd), 0.06)
+    common = dict(gas_concs=atm["gas_concs"], p_lay=atm["p_lay"],
+                  p_lev=atm["p_lev"], t_lay=atm["t_lay"])
+    kernels.reset_launch_counts()
+    lw = RadiationSolverLW(kd_lw, cl_lw)
+    got = {}
+    clear = lw.solve(t_lev=atm["t_lev"], t_sfc=atm["t_sfc"], emis_sfc=emis,
+                     **common)
+    cloudy = lw.solve(t_lev=atm["t_lev"], t_sfc=atm["t_sfc"], emis_sfc=emis,
+                      lwp=atm["lwp"], iwp=atm["iwp"], rel=atm["rel"],
+                      dei=atm["dei"], **common)
+    for k in ("lw_flux_up", "lw_flux_dn"):
+        got["clear_" + k], got["cloudy_" + k] = clear[k], cloudy[k]
+    swout = RadiationSolverSW(kd_sw, cl_sw, alut).solve(
+        mu0=atm["mu0"], sfc_alb_dir=alb, sfc_alb_dif=alb, lwp=atm["lwp"],
+        iwp=atm["iwp"], rel=atm["rel"], dei=atm["dei"], rh=atm["rh"],
+        aermr=atm["aermr"], delta_cloud=True, delta_aerosol=True, **common)
+    for k in ("sw_flux_up", "sw_flux_dn", "sw_flux_dn_dir"):
+        got["allsky_" + k] = swout[k]
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts().values())
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "goldens", "fluxes_f64.nc")
+    with ncio.NcReader(golden) as nc:
+        for name, arr in got.items():
+            assert arr.dtype == f64 and arr.device.type == "cuda", name
+            err = float(np.abs(arr.cpu().numpy() - nc.read(name)).max())
+            assert err <= golden_case.THRESHOLD_WM2, (name, err)
+
+
+def _tracer_means(device, seed):
+    rng = np.random.default_rng(2)
+    shape = (6, 4, 5)
+    kg = rng.uniform(1e-5, 1e-4, shape)
+    cld = np.where(rng.random(shape) < 0.4, rng.uniform(1e-3, 5e-3, shape),
+                   0.0)
+    f = [kg + cld, 0.5 * kg, 0.99 * cld, np.zeros(shape),
+         np.where(cld > 0, 0.85, 0.0), np.zeros(shape)]
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    out = raytracer.trace_rays(
+        seed, *map(t, f), None, t(rng.uniform(0.05, 0.3, shape[1:])),
+        (2, 2, 5), (500.0, 800.0, 700.0), 900.0, 100.0,
+        raytracer.sun_direction_from_angles(0.6, 0.3), photons_per_pixel=64)
+    return {n: float(getattr(out, n).double().mean()) for n in out._fields}
+
+
+def test_tracer_on_card_matches_cpu(cuda):
+    """At equal photon counts the card's domain means lie within 4 sigma of
+    the CPU's, sigma from the spread of a few seeds on each side."""
+    card = [_tracer_means(cuda, s) for s in range(6)]
+    cpu = [_tracer_means("cpu", s) for s in range(6)]
+    for name in card[0]:
+        a = np.array([c[name] for c in card])
+        b = np.array([c[name] for c in cpu])
+        sigma = np.sqrt((a.var(ddof=1) + b.var(ddof=1)) / len(a))
+        assert abs(a.mean() - b.mean()) <= 4 * sigma + 1e-6 * abs(b.mean()), \
+            (name, a, b)
+
+
+@pytest.mark.parametrize("longwave", [False, True])
+def test_cli_rt_on_card_launches_gas_optics_kernel(cuda, tmp_path,
+                                                   monkeypatch, longwave):
+    """``cli_rt`` on a small case on the card: one gas-optics launch for
+    the SW pass 1 (one chunk, one g-point), plus one LW gas-optics and one
+    LW sweep launch with ``--longwave``; the fluxes finite and the
+    incident flux exact."""
+    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
+    inputs.make_case_files(str(tmp_path), "allsky", gpt_per_band=2)
+    atm = make_atmosphere(4 * 3, 16, seed=3)
+    inputs.write_input_nc(str(tmp_path / "rte_rrtmgp_input.nc"), atm, 4, 3,
+                          rt_grid={"nz": 8, "sza": 0.4})
+    monkeypatch.chdir(tmp_path)
+    kernels.reset_launch_counts()
+    flags = ["--raytracing", "16", "--two-stream", "--cloud-optics",
+             "--single-gpt", "5"] + (["--longwave"] if longwave else [])
+    assert cli_rt.main(flags) == 0
+    got = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert got == ({"gas_optics_interp": 2, "lw_sweep": 1} if longwave
+                   else {"gas_optics_interp": 1})
+    with ncio.NcReader("rte_rrtmgp_output.nc") as nc:
+        for v in nc.variables():
+            assert np.isfinite(nc.read(v)).all(), v
+        assert nc.read("rt_flux_abs_dir").shape == (9, 3, 4)
+        assert (nc.read("rt_flux_tod_dn") > 0).all()
 
 
 CLI_RUNS = {

@@ -166,22 +166,35 @@ def test_cpu_solve_never_reads_a_card_winner(isolated_cache, monkeypatch):
 
 
 def test_checked_in_table_names_only_cards(isolated_cache, monkeypatch):
-    """Every entry of the checked-in table is a card's radiation-step sweep
-    with the card's name beside it, and resolves for its device kind."""
+    """Every entry of the checked-in table is a card's sweep with the card's
+    name beside it — the radiation step's (``tune_radiation.py``) or the
+    forward tracer's (``tune_rt.py``, key ``rt_trace``) — and resolves for
+    its device kind."""
     with open(tuner.defaults_path()) as f:
         table = json.load(f)
     real = tuner.device_kind
     for k, entry in table.items():
         name, static, kind = json.loads(k)
         assert kind.startswith("cuda:"), k
-        assert name == "radiation_step" and set(static) == {"ncol", "nlay"}
-        assert set(entry["config"]) == {"gpt_chunk", "cellw", "layermajor"}
+        assert name in ("radiation_step", "rt_trace"), k
+        if name == "radiation_step":
+            assert set(static) == {"ncol", "nlay"}
+            assert set(entry["config"]) == {"gpt_chunk", "cellw",
+                                            "layermajor"}
+            assert entry["rounds"] >= 10
+        else:
+            assert set(static) == {"nx", "nz", "ppp"}
+            assert entry["config"]["respawn_mode"] in ("fifo", "arith", "pool")
+            assert set(entry["config"]) <= {"respawn_mode", "compact_floor",
+                                            "photons_per_lane"}
+            assert entry["rounds"] >= 3
         assert entry["card"].startswith(kind[len("cuda:"):]), entry["card"]
-        assert entry["rounds"] >= 10
         assert entry["ms"] == min(r["ms"] for r in entry["all"])
         monkeypatch.setattr(tuner, "device_kind", lambda device=None: kind)
-        best = min((e for kk, e in table.items() if json.loads(kk)[2] == kind),
+        best = min((e for kk, e in table.items()
+                    if json.loads(kk)[2] == kind and json.loads(kk)[0] == name),
                    key=lambda e: e["ms"])
-        assert tuner.best_kernel_opts() == best["config"]
+        assert tuner.best_workload_opts(name) == best["config"]
     monkeypatch.setattr(tuner, "device_kind", real)
     assert tuner.best_kernel_opts("cpu") is None
+    assert tuner.best_workload_opts("rt_trace", "cpu") is None

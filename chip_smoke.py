@@ -62,7 +62,28 @@ Phases (any failure ends the run with a nonzero exit):
    launch counts and energy closure, the clear sky's surface fluxes within
    ``RT_TWOSTREAM_TOL`` of the two-stream's; ``cli_rt_lite`` on the bench
    optics; the tracer on the card against the CPU within 4 sigma.
-7. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
+7. The backward (camera) tracer (in ``build/chip_bw``): the JAX README's
+   headline frame through ``tools/bench_bw.py`` (a 64x64 px broadband
+   fisheye frame, 14 spectral steps, over 32x32x24 cells under 36 layers,
+   knull (4,4,4), walk NEE, ``lanes`` in one window; ``BW_PPP`` photons a
+   pixel, cut from 16: a grazing-ray tail of thousands of host-bound steps
+   sets a frame's time, so the frame in scan mode and with the field NEE
+   (``tools/bench_bw.py --spectral scan`` / ``--nee field``, 1.5-4 min
+   each) stays out of this script's time limit) with ms a frame, camera
+   rays/s, the photon-loop steps, the walk's sub-steps and ms a step by
+   width phase; one profiled trace cut at ``BW_PROFILE_STEPS`` steps
+   (device events a step, busy share); ``cli_bw`` on the ``rcemip``
+   atmosphere (64x64 columns, 256 layers, the lowest ``BW_CLI_NZ`` rendered
+   in 3D, a ``BW_CLI_CAM``-pixel TOA camera written in the classic form)
+   broadband with ``--cloud-optics --cloud-cam``, then ``--image --n-sub
+   2``, each timed as gas optics + render, with its peak device memory and
+   its exact gas-optics launch count, the launches replayed against their
+   twins; ``cli_rt_lite --bw-raytracing`` on the bench optics; physics
+   checks (the vacuum Lambertian limit, an absorbing
+   layer, fifo against pool, field against walk NEE), the render on the
+   card against the CPU within 4 sigma, and the cloud-camera images
+   against the CPU's within 1e-5 of their largest value.
+8. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
    that runs it in phase 4), then the last line ``{"ok": true, "device":
    {...}}``.
 """
@@ -93,6 +114,14 @@ RT_CLOSURE = 0.02              # MC energy closure (tests/test_radiation_rt.py)
 RT_TWOSTREAM_TOL = 0.05        # clear-sky MC vs two-stream (ibid.)
 RT_SEEDS = 6                   # card vs CPU: seeds on each side
 RT_PROFILE_STEPS = 256         # steps of the profiled trace
+BW_DIR = os.path.join("build", "chip_bw")
+BW_CAM = 64                    # the headline frame's camera (64x64 px)
+BW_PPP = 1                     # photons a pixel of the frame (the JAX bench: 16)
+BW_PROFILE_STEPS = 16          # steps of the profiled camera trace
+BW_CLI_NZ = 128                # cli_bw: 3D layers of 256 (the uniform half)
+BW_CLI_CAM, BW_CLI_PPP = 8, 1  # cli_bw / cli_rt_lite: TOA camera px a side, ppp
+BW_SEEDS = 12                  # card vs CPU: seeds on each side
+BW_MEANS_TOL = {"fifo": 0.05, "field": 0.08}   # tests/test_raytracer_bw.py
 N_ROUNDS, N_STEPS = 3, 5       # step timing
 SIGMA = 5.670374419e-8
 LAYOUTS = {"default": dict(cellw=True, layer_major=False),
@@ -672,6 +701,354 @@ def tracer_phase(dev, card, record, replay):
           f"{worst:.2f} sigma)")
 
 
+def bw_phase(dev, card, record, replay):
+    """7. The backward (camera) tracer: the headline frame (walk, field,
+    lanes) through ``tools/bench_bw.py``, one profiled trace, ``cli_bw``
+    at the RCEMIP extent (gas optics and render timed apart, exact
+    gas-optics launch counts replayed against their twins, peak memory),
+    ``cli_rt_lite --bw-raytracing``, the physics checks, and the card
+    against the CPU.  Every line names the card."""
+    import numpy as np
+    import torch
+
+    from rte_rrtmgp_torch import cli_bw, cli_rt_lite, config
+    from rte_rrtmgp_torch.cases import inputs
+    from rte_rrtmgp_torch.cases.profiles import make_atmosphere
+    from rte_rrtmgp_torch.models import CloudLUT, KDist
+    from rte_rrtmgp_torch.models import radiation_bw, raytracer_bw as rbw
+    from rte_rrtmgp_torch.ops import kernels
+    from rte_rrtmgp_torch.tools import bench_bw, bench_rt
+    from rte_rrtmgp_torch.tools import set_virtual_camera as cam_tool
+    from rte_rrtmgp_torch.utils.ncio import NcReader
+
+    tag = f"[bw] ({card})"
+    os.makedirs(BW_DIR, exist_ok=True)
+    sync = torch.cuda.synchronize
+
+    # ---- the headline frame (tools/bench_bw.py) ----
+    print(f"{tag} frame: {BW_CAM}x{BW_CAM} px broadband fisheye, {BW_PPP} "
+          f"photons a pixel (the JAX bench's 16 cut to {BW_PPP}: a frame's "
+          "time is its grazing-ray tail of host-bound steps), 14 spectral "
+          f"steps, {bench_bw.NX}x{bench_bw.NY}x{bench_bw.NZ} cells under "
+          f"{bench_bw.NLAY} layers, knull {bench_bw.KNULL}")
+    t0 = time.perf_counter()
+    res = bench_bw.measure_bw(BW_CAM, BW_PPP, device=dev,
+                              spectral_mode="lanes", steps_per_dispatch=None)
+    rad = res["radiance"]
+    if not (bool(torch.isfinite(rad).all()) and float(rad.min()) >= 0):
+        fail("bw frame: radiance not finite and non-negative")
+    print(f"{tag} frame, walk NEE, lanes (one window): "
+          f"{res['ms_per_frame']:.1f} ms a frame (CUDA events), "
+          f"{res['camera_rays_per_s']:.1f} camera rays/s, {res['steps']} "
+          f"photon-loop steps, {res['sub_steps']} walk sub-steps "
+          f"(+{res['prepass_sub_steps']} in the launch pre-pass), "
+          f"{res['ms_per_step']:.3f} ms a step; radiance mean "
+          f"{res['radiance_mean']:.6e}; {time.perf_counter() - t0:.1f} s with "
+          "setup")
+    for w, ph in res["phases"].items():
+        n = max(ph["steps"], 1)
+        print(f"{tag}   width {w}: {ph['steps']} steps, "
+              f"{ph['sub_steps'] / n:.2f} walk sub-steps a step, "
+              f"{ph['ms'] / n:.3f} ms a step (host clock)")
+
+    # One profiled trace of the frame's 10th spectral step, cut at
+    # BW_PROFILE_STEPS steps (all in the widest phase): device events a
+    # step and the card's busy time, against the same steps unprofiled.
+    from torch.profiler import ProfilerActivity, profile
+
+    class _Captured(Exception):
+        pass
+
+    captured = {}
+
+    def capture(*a, **kw):
+        captured.update(a=a, kw=kw)
+        raise _Captured
+
+    render, _ = bench_bw.make_render(BW_CAM, BW_PPP, device=dev,
+                                     steps=slice(9, 10))
+    with Patch((rbw, "trace_rays_bw", capture)):
+        try:
+            render(7)
+        except _Captured:
+            pass
+    kw = dict(captured["kw"], max_steps=BW_PROFILE_STEPS)
+    trace = lambda: rbw.trace_rays_bw(*captured["a"], **kw)
+    sync()
+    t0 = time.perf_counter()
+    trace()
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, aux = trace()
+        sync()
+    span = (time.perf_counter() - t0) * 1e3
+    dev_rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in dev_rows) / 1e3
+    events = sum(e.count for e in dev_rows)
+    n = aux["steps"]
+    print(f"{tag} profiled trace (g-point 10, its first {n} steps, width "
+          f"{aux['phase_widths'][0]}, {aux['sub_steps']} walk sub-steps, "
+          f"{aux['prepass_sub_steps']} in the pre-pass): device busy "
+          f"{busy:.1f} ms in a profiled span of {span:.1f} ms "
+          f"({busy / span:.1%}) and {busy / plain_ms:.1%} of the same trace "
+          f"unprofiled ({plain_ms:.1f} ms, {plain_ms / n:.3f} ms a step); "
+          f"{events} device events, {events / n:.1f} a step, "
+          f"{events / max(n + aux['sub_steps'] + aux['prepass_sub_steps'], 1):.1f}"
+          " a step or sub-step")
+    for e in dev_rows[:6]:
+        print(f"{tag}   {e.device_time_total / 1e3:9.3f} ms {e.count:7d}x "
+              f"{e.key[:90]}")
+    del prof, dev_rows, captured, render
+
+    # ---- cli_bw at the RCEMIP extent ----
+    t0 = time.perf_counter()
+    paths = inputs.make_case_files(BW_DIR, "rcemip", gpt_per_band=1)
+    with NcReader(paths["input"]) as nc:
+        nx, ny, nlay = nc.dim("x"), nc.dim("y"), nc.dim("lay")
+    atm = make_atmosphere(nx * ny, nlay, seed=0, perturb=True)
+    inputs.write_input_nc(paths["input"], atm, nx, ny,
+                          rt_grid={"nz": BW_CLI_NZ, "ngrid_x": 4,
+                                   "ngrid_y": 4, "ngrid_z": 4, "sza": 0.6,
+                                   "azi": 0.4})
+    cam_tool.main(["--name", paths["input"], "--toa", "--nx", str(BW_CLI_CAM),
+                   "--ny", str(BW_CLI_CAM)])
+    with NcReader(paths["input"]) as nc:
+        if nc.is_hdf5 or "camera-settings.nx" not in nc.variables():
+            fail("cli_bw input: the camera is not in the classic form")
+        camera = cam_tool.read_camera(nc)
+        z = nc.read("z")
+    grid_d = (float(z[1] - z[0]), 1000.0, 1000.0)
+    print(f"{tag} cli_bw case: rcemip atmosphere {nx}x{ny} columns x {nlay} "
+          f"layers, the lowest {BW_CLI_NZ} in 3D (dz {grid_d[0]:.4f} m) under "
+          f"{nlay - BW_CLI_NZ} background layers, knull (4,4,4), TOA camera "
+          f"{camera.nx}x{camera.ny} (classic camera-settings.* variables); "
+          f"files {time.perf_counter() - t0:.2f} s")
+    gases = make_atmosphere(1, nlay)["gas_concs"].names()
+    kd = KDist.from_netcdf(paths["coefs_sw"], gases, device=dev)
+    if config.cellw_enabled(dev):
+        expected = {"gas_optics_interp": 1}
+    else:
+        expected = {"interp_rows_multi": 1,
+                    **({"interp_rows": 1} if kd.minor_lower or kd.minor_upper
+                       else {})}
+    files = ["--input", paths["input"], "--coefs-sw", paths["coefs_sw"],
+             "--cloud-sw", paths["cloud_sw"]]
+    common = ["--cloud-optics", "--bw-raytracing", str(BW_CLI_PPP),
+              "--spectral-mode", "lanes", "--steps-per-dispatch", "off"]
+    runs = {"broadband": ["--broadband", "--cloud-cam"],
+            "image": ["--image", "--n-sub", "2"]}
+    timing = {}
+    orig_planes = radiation_bw.gas_planes
+    orig_solve = radiation_bw.RadiationSolverBW.solve
+
+    def timed_planes(*a, **kw):
+        sync()
+        t = time.perf_counter()
+        r = orig_planes(*a, **kw)
+        sync()
+        timing["gas"] = time.perf_counter() - t
+        return r
+
+    def timed_solve(self, *a, **kw):
+        sync()
+        t = time.perf_counter()
+        r = orig_solve(self, *a, **kw)
+        sync()
+        timing["solve"] = time.perf_counter() - t
+        return r
+
+    timers = Patch((radiation_bw, "gas_planes", timed_planes),
+                   (radiation_bw.RadiationSolverBW, "solve", timed_solve))
+    for name, flags in runs.items():
+        out_path = os.path.join(BW_DIR, f"out_{name}.nc")
+        argv = files + common + flags + ["--output", out_path]
+        print(f"{tag} cli_bw {name}: flags {' '.join(common + flags)}",
+              flush=True)
+        timing.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        rcs = []
+        with timers:
+            calls = record(lambda: rcs.append(cli_bw.main(argv)))
+        sync()
+        got = {k: len(v) for k, v in calls.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        solve_ms, gas_ms = timing["solve"] * 1e3, timing["gas"] * 1e3
+        print(f"{tag} cli_bw {name}: rc {rcs[0]}, {solve_ms:.1f} ms a solve = "
+              f"gas optics {gas_ms:.1f} ms + render {solve_ms - gas_ms:.1f} ms;"
+              f" peak device memory {peak:.3f} GiB; gas-optics launches {got}"
+              f" (expected {expected})")
+        if rcs[0] != 0 or got != expected:
+            fail(f"cli_bw {name}: rc {rcs[0]}, launches {got}, expected "
+                 f"{expected}")
+        for kname, recs in calls.items():
+            if recs:
+                replay(kname, recs, f"cli_bw {name}")
+        del calls
+        with NcReader(out_path) as nc:
+            out = {v: nc.read(v) for v in nc.variables()
+                   if v not in ("x", "y", "n")}
+        want = {"radiance"} | ({"XYZ"} if name == "image" else set()) | (
+            {"liq_ice_wp_cam", "tau_cld_cam", "dist_cld_cam", "zen_cam"}
+            if name == "broadband" else set())
+        if set(out) != want or not all(np.isfinite(v).all()
+                                       for v in out.values()):
+            fail(f"cli_bw {name}: variables {sorted(out)} (expected "
+                 f"{sorted(want)}) or non-finite values")
+        rad = out["radiance"].astype(np.float64)
+        if not (rad.min() >= 0 and rad.mean() > 0):
+            fail(f"cli_bw {name}: radiance min {rad.min()} mean {rad.mean()}")
+        print(f"{tag} cli_bw {name}: radiance mean {rad.mean():.6e} max "
+              f"{rad.max():.6e}" + (
+                  f"; XYZ means {out['XYZ'].reshape(3, -1).mean(1)}"
+                  if name == "image" else ""))
+        if name == "broadband":
+            # The cloud-camera march is deterministic: the card's images
+            # against the CPU's.
+            clouds = {k: inputs_field(paths["input"], k, nlay, nx * ny)
+                      for k in ("lwp", "iwp", "rel", "dei")}
+            clut = CloudLUT.from_netcdf(paths["cloud_sw"], device="cpu")
+            cpu_imgs = cli_bw.cloud_cam_images(
+                camera, grid_d, (BW_CLI_NZ, ny, nx), kd, clut, clouds,
+                torch.device("cpu"))
+            for v, ref in zip(("liq_ice_wp_cam", "tau_cld_cam",
+                               "dist_cld_cam", "zen_cam"), cpu_imgs):
+                ref = ref.numpy()
+                err = float(np.abs(out[v] - ref).max())
+                scale = float(np.abs(ref).max())
+                print(f"{tag} cloud camera {v}: card vs CPU max abs err "
+                      f"{err:.3e} (max {scale:.4e})")
+                if err > 1e-5 * scale:
+                    fail(f"cloud camera {v}: card vs CPU {err:.3e} > 1e-5 x "
+                         f"{scale:.4e}")
+
+    # ---- cli_rt_lite --bw-raytracing on the bench optics ----
+    lite_in = os.path.join(BW_DIR, "rt_lite_input.nc")
+    lite_out = os.path.join(BW_DIR, "rt_lite_output.nc")
+    bench_rt.write_lite_input(lite_in, RT_NZ, RT_NX, RT_NX)
+    cam_tool.main(["--name", lite_in, "--toa", "--nx", str(BW_CLI_CAM), "--ny",
+                   str(BW_CLI_CAM)])
+    sync()
+    t0 = time.perf_counter()
+    rc = cli_rt_lite.main(["--input", lite_in, "--output", lite_out,
+                           "--raytracing", "0", "--bw-raytracing",
+                           str(BW_CLI_PPP)])
+    dt = time.perf_counter() - t0
+    with NcReader(lite_out) as nc:
+        rad = nc.read("radiance").astype(np.float64)
+        dims = (nc.dim("cam_y"), nc.dim("cam_x"))
+    print(f"{tag} cli_rt_lite --bw-raytracing {BW_CLI_PPP} on the bench optics "
+          f"({RT_NX}x{RT_NX}x{RT_NZ}, TOA camera {dims[1]}x{dims[0]}): rc {rc}, "
+          f"{dt * 1e3:.1f} ms (read, render, write); radiance mean "
+          f"{rad.mean():.6e}")
+    if rc != 0 or dims != (BW_CLI_CAM, BW_CLI_CAM) or not (
+            np.isfinite(rad).all() and rad.min() >= 0 and rad.mean() > 0):
+        fail(f"cli_rt_lite --bw-raytracing: rc {rc}, dims {dims}, radiance "
+             f"finite {np.isfinite(rad).all()} mean {rad.mean()}")
+
+    # ---- physics checks (tests/test_raytracer_bw.py) ----
+    def simple(device, seed, k_ext, ksg, cam, ppp, albedo=0.2, **kw):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        sh = k_ext.shape
+        zeros = torch.zeros(sh, dtype=torch.float32, device=device)
+        (count, shot), aux = rbw.trace_rays_bw(
+            rbw._key(seed), cam, t(k_ext), t(ksg), zeros, zeros, zeros, zeros,
+            t([1e-9, 1e-9]), t([0.0, 0.0]), t(np.zeros((2, 3))),
+            t([sh[0] * 500.0, sh[0] * 500.0 + 1000.0, sh[0] * 500.0 + 2000.0]),
+            t(np.full(sh[1:], albedo)), t(np.ones(sh[1:])), (2, 2, 2),
+            (500.0, 500.0, 500.0), np.array([0.6, 0.0, 0.8]), 0.8,
+            photons_per_pixel=ppp, return_aux=True, **kw)
+        return float(count.double().sum() / shot.double().sum()), aux
+
+    sh = (4, 8, 8)
+    toa8 = rbw.Camera(cam_type=2, nx=8, ny=8)
+    t0 = time.perf_counter()
+    vac, aux = simple(dev, 0, np.full(sh, 1e-9), np.zeros(sh), toa8, 64)
+    expect = 0.2 * rbw.SUN_SOLID_ANGLE / np.pi
+    print(f"{tag} vacuum Lambertian: {vac:.6e} a photon, expected "
+          f"albedo*SUN_SOLID_ANGLE/pi = {expect:.6e} ({vac / expect - 1:+.3%};"
+          f" {aux['steps']} steps)")
+    if abs(vac / expect - 1) > 0.05:
+        fail(f"vacuum Lambertian: {vac} vs {expect}")
+    absorbed, _ = simple(dev, 1, np.full(sh, 2e-4), np.zeros(sh), toa8, 64)
+    want = np.exp(-0.4 / 0.8 - 0.4)
+    print(f"{tag} absorbing layer (tau 0.4): attenuation {absorbed / vac:.4f}, "
+          f"expected exp(-tau (1/mu0 + 1)) = {want:.4f}")
+    if abs(absorbed / vac / want - 1) > 0.1:
+        fail(f"absorbing layer: {absorbed / vac} vs {want}")
+    k3 = np.full(sh, 3e-4)
+    means = {}
+    for mode, kw in (("pool", dict(respawn_mode="pool")),
+                     ("fifo", dict(respawn_mode="fifo"))):
+        means[mode], aux = simple(dev, 0, k3, 0.9 * k3,
+                                  rbw.Camera(cam_type=2, nx=32, ny=32), 128,
+                                  albedo=0.3, **kw)
+        if aux["rpl"] < 2:
+            fail(f"fifo vs pool: {aux['rpl']} rays a lane, respawn never fires")
+    zz = np.add.outer(np.arange(4) * 0.7, np.add.outer(np.arange(8) * 0.5,
+                                                       np.arange(8) * 0.9))
+    cloud = 0.4e-3 * (1.0 + np.sin(zz))
+    for mode in ("walk", "field"):
+        means["nee_" + mode], _ = simple(dev, 5, 2e-4 + cloud, 1e-4 + cloud,
+                                         toa8, 128, albedo=0.25,
+                                         nee_mode=mode)
+    for a, b, tol in (("fifo", "pool", BW_MEANS_TOL["fifo"]),
+                      ("nee_field", "nee_walk", BW_MEANS_TOL["field"])):
+        rel = means[a] / means[b] - 1
+        print(f"{tag} {a} vs {b}: {means[a]:.6e} vs {means[b]:.6e} a photon "
+              f"({rel:+.3%}, limit {tol:.0%})")
+        if abs(rel) > tol:
+            fail(f"{a} vs {b}: {rel:+.3%}")
+    print(f"{tag} physics checks: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the camera tracer on the card against the CPU ----
+    rng = np.random.default_rng(2)
+    shape = (6, 6, 6)
+    kg = rng.uniform(2e-5, 1e-4, shape)
+    cld = np.where(rng.random(shape) < 0.3, rng.uniform(5e-4, 2e-3, shape), 0.0)
+    small = [kg + cld, 0.7 * kg, 0.99 * cld, np.zeros(shape),
+             np.where(cld > 0, 0.85, 0.0), np.zeros(shape)]
+    fish = rbw.Camera(cam_type=0, nx=6, ny=5, fov=170.0, pitch_deg=-40.0,
+                      position=(1500.0, 1500.0, 300.0))
+
+    def bw_mean(device, seed):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        (c, _) = rbw.trace_rays_bw(
+            rbw._key(seed), fish, *map(t, small), t([2e-6, 1e-6]),
+            t([0.8, 0.9]), t(np.tile([1.0, 0.0, 0.0], (2, 1))),
+            t([3000.0, 5000.0, 9000.0]), t(np.full(shape[1:], 0.2)),
+            t(np.ones(shape[1:])), (2, 2, 2), (500.0, 500.0, 500.0),
+            np.array([0.5, 0.3, np.sqrt(1 - 0.34)]), float(np.sqrt(1 - 0.34)),
+            photons_per_pixel=16)
+        return float(c.double().mean())
+
+    a = np.array([bw_mean(dev, s) for s in range(BW_SEEDS)])
+    b = np.array([bw_mean(torch.device("cpu"), s) for s in range(BW_SEEDS)])
+    sigma = np.sqrt((a.var(ddof=1) + b.var(ddof=1)) / BW_SEEDS)
+    diff = abs(a.mean() - b.mean())
+    print(f"{tag} card vs CPU {shape}, fisheye 6x5 px, 16 ppp, {BW_SEEDS} "
+          f"seeds each: count mean {a.mean():.6e} vs {b.mean():.6e}, "
+          f"{diff / sigma:.2f} sigma of the difference ({sigma:.2e})")
+    if not (a.mean() > 0 and diff <= 4 * sigma):
+        fail(f"camera tracer card vs CPU: {a.mean()} vs {b.mean()}, 4 sigma "
+             f"= {4 * sigma}")
+
+
+def inputs_field(path, name, nlay, ncol):
+    """An (ncol, nlay) field of a case input file (``cli._read_field``)."""
+    from rte_rrtmgp_torch.cli import _read_field
+    from rte_rrtmgp_torch.utils.ncio import NcReader
+
+    with NcReader(path) as nc:
+        return _read_field(nc, name, nlay, ncol)
+
+
 def main(argv) -> int:
     import torch
 
@@ -1078,7 +1455,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     tracer_phase(dev, card, record, replay)
 
-    # ---- 7. result lines ----
+    # ---- 7. the backward (camera) tracer ----
+    torch.cuda.empty_cache()
+    bw_phase(dev, card, record, replay)
+
+    # ---- 8. result lines ----
     rows = []
     for name, meta in KERNEL_INFO.items():
         layout = meta["layout"]

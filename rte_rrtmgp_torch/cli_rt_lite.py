@@ -4,12 +4,13 @@ The port's ``test_rt_lite`` (``src_test/test_rt_lite.cu``; the JAX
 package's ``cli_rt_lite``): reads ``rt_lite_input.nc`` (tot/cld/aer tau,
 ssa, asy per (z, y, x); albedo; sza/azi; tod_direct; ngrid_x/y/z
 null-collision grid dims) — no gas optics — traces photons in float32,
-writes the ray-traced fluxes.  ``--device``: ``cuda`` (default) or
-``cpu``.  The camera render (``--bw-raytracing``) needs the backward
-tracer, which the port does not have yet (ROADMAP A14): a nonzero value
-exits with a message.
+writes the ray-traced fluxes.  ``--bw-raytracing N`` also renders camera
+radiances with the backward tracer (N photons a pixel; the input needs a
+"camera-settings" group) into ``radiance`` (cam_y, cam_x).  ``--device``:
+``cuda`` (default) or ``cpu``.
 
-Usage: python -m rte_rrtmgp_torch.cli_rt_lite [--raytracing N] [--independent-column]
+Usage: python -m rte_rrtmgp_torch.cli_rt_lite [--raytracing N] [--bw-raytracing N]
+           [--independent-column]
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from . import config
 from .models import raytracer as rt
+from .models import raytracer_bw as rbw
 from .models.radiation import _host
 from .ops import rte_sw
 from .utils import status
@@ -32,7 +34,8 @@ def main(argv=None) -> int:
     p.add_argument("--raytracing", type=int, default=32,
                    help="forward photons per pixel (0 disables)")
     p.add_argument("--bw-raytracing", type=int, default=0, metavar="N",
-                   help="camera radiances: not ported yet (ROADMAP A14)")
+                   help="render camera radiances with N photons per pixel "
+                        "(needs a camera-settings group in the input)")
     p.add_argument("--two-stream", action="store_true",
                    help="also run the 1D two-stream solver on the "
                         "prescribed optics")
@@ -42,10 +45,6 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.bw_raytracing:
-        raise SystemExit("rt_lite: --bw-raytracing renders with the backward "
-                         "camera tracer, which is not ported yet (ROADMAP "
-                         "A14); run without it")
     device = config.resolve_device(args.device)
     f32 = torch.float32
 
@@ -74,6 +73,11 @@ def main(argv=None) -> int:
     azi = nc.read_scalar("azi")
     tod_dir = nc.read_scalar("tod_direct")
     tod_dif = nc.read_scalar("tod_diffuse") if nc.has("tod_diffuse") else 0.0
+    camera = None
+    if args.bw_raytracing > 0:
+        from .tools.set_virtual_camera import read_camera
+
+        camera = read_camera(nc)
     nc.close()
 
     k = rt.bundle_optical_props(tot_tau, tot_ssa, cld_tau, cld_ssa, cld_asy,
@@ -88,6 +92,23 @@ def main(argv=None) -> int:
             tod_dir * float(np.cos(sza)), tod_dif, sun,
             photons_per_pixel=args.raytracing,
             independent_column=args.independent_column)
+
+    radiance = None
+    if camera is not None:
+        status.print_message(
+            f"Rendering camera radiances ({args.bw_raytracing} photons/pixel).")
+        # Prescribed optics: no background column above the domain.
+        z_top = nz * dz
+        zero = lambda *s: torch.zeros(s, dtype=f32, device=device)
+        count, _ = rbw.trace_rays_bw(
+            rbw._key(args.seed + 1), camera, *k, zero(1), zero(1), zero(1, 3),
+            torch.tensor([z_top, z_top * (1 + 1e-6)], dtype=f32,
+                         device=device),
+            albedo, torch.ones((ny, nx), dtype=f32, device=device), kn_grid,
+            (dz, dy, dx), -sun,    # toward the sun (z > 0)
+            float(np.cos(sza)), photons_per_pixel=args.bw_raytracing)
+        radiance = rbw.count_to_radiance(count, tod_dir, 1.0,
+                                         args.bw_raytracing)
 
     ts = None
     if args.two_stream:
@@ -120,6 +141,11 @@ def main(argv=None) -> int:
                 w.write(name, _host(val), ("y", "x"))
             w.write("flux_abs_dir", _host(out.flux_abs_dir), ("z", "y", "x"))
             w.write("flux_abs_dif", _host(out.flux_abs_dif), ("z", "y", "x"))
+        if radiance is not None:
+            w.def_dim("cam_x", camera.nx)
+            w.def_dim("cam_y", camera.ny)
+            w.write("radiance", _host(radiance), ("cam_y", "cam_x"),
+                    attrs={"long_name": "rendered radiance"})
         if ts is not None:
             w.def_dim("lev", nz + 1)
             for name, val in zip(("sw_flux_up", "sw_flux_dn", "sw_flux_dn_dir"),

@@ -171,8 +171,10 @@ def _mie_phase_value(mie_phase_ang, mie_phase, scat_ang, r_eff):
     raytracer_functions.h:128-147).  ``mie_phase_ang``: (n_ang,) equally
     spaced angles 0..pi; ``mie_phase``: (n_re, n_ang) phase values per
     effective radius (r_eff grid 2.5..2.5+n_re-1 um, like the cdf tables).
-    Returns phase per steradian."""
-    n_re, n_ang = mie_phase.shape
+    Or, for B traces whose lanes are B equal consecutive segments of
+    ``scat_ang``: ``mie_phase`` (B, n_re, n_ang).  Returns phase per
+    steradian."""
+    n_re, n_ang = mie_phase.shape[-2:]
     r_idx = torch.clamp((r_eff - 2.5).to(torch.int64), 0, n_re - 2)
     r_rest = torch.remainder(r_eff - 2.5, 1.0)
     d_ang = mie_phase_ang[1] - mie_phase_ang[0]     # uniform grid spacing
@@ -182,6 +184,12 @@ def _mie_phase_value(mie_phase_ang, mie_phase, scat_ang, r_eff):
     dr = torch.clamp(torch.abs(a1 - a0), min=1e-30)
     w0 = torch.abs(scat_ang - a1) / dr
     w1 = torch.abs(a0 - scat_ang) / dr
+    if mie_phase.dim() == 3:
+        # Row r of trace b is row b * n_re + r of the stacked tables.
+        B = mie_phase.shape[0]
+        r_idx = r_idx + (torch.arange(B, device=r_idx.device) * n_re
+                         ).repeat_interleave(r_idx.shape[0] // B)
+        mie_phase = mie_phase.reshape(B * n_re, n_ang)
     p_lwr = w0 * mie_phase[r_idx, i] + w1 * mie_phase[r_idx, i + 1]
     p_upr = w0 * mie_phase[r_idx + 1, i] + w1 * mie_phase[r_idx + 1, i + 1]
     return p_lwr * (1.0 - r_rest) + p_upr * r_rest

@@ -9,6 +9,11 @@ files through ``h5py`` when it is importable.
 Classic NetCDF has no 64-bit integers and no booleans: the writer stores
 both as 32-bit integers.  Character arrays are stored as ``char``.  A
 dimension gets a variable of its own only where a caller writes one.
+
+Classic NetCDF has no groups either, and a classic name may not contain
+``/``.  A group's variables are stored there under the prefixed name
+``<group>.<variable>`` (``camera-settings.px``); :meth:`NcReader.group`
+reads that form from a classic file and the HDF5 group of a NetCDF4 file.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ except ImportError:  # the card's machine has no h5py
     h5py = None
 
 _HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+GROUP_SEP = "."     # <group>.<variable>: a group's variable in a classic file
 
 
 def _is_hdf5(path: str) -> bool:
@@ -123,6 +129,24 @@ class NcReader:
             return [k for k, v in self._h5.items() if isinstance(v, h5py.Dataset)]
         return list(self._sp.variables)
 
+    @property
+    def is_hdf5(self) -> bool:
+        return self._h5 is not None
+
+    def has_group(self, name: str) -> bool:
+        """Whether the file holds group ``name``: an HDF5 group, or in a
+        classic file any variable ``<name>.<variable>``."""
+        if self._h5 is not None:
+            return name in self._h5 and isinstance(self._h5[name], h5py.Group)
+        prefix = name + GROUP_SEP
+        return any(v.startswith(prefix) for v in self._sp.variables)
+
+    def group(self, name: str) -> "NcGroup":
+        """A read view of group ``name`` (either form)."""
+        if not self.has_group(name):
+            raise KeyError(f"group {name!r} not found in {self.path}")
+        return NcGroup(self, name)
+
     def close(self):
         (self._h5 if self._h5 is not None else self._sp).close()
 
@@ -131,6 +155,70 @@ class NcReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class NcGroup:
+    """The variables of one group of an open :class:`NcReader`: the HDF5
+    group's datasets, or a classic file's ``<group>.<variable>``."""
+
+    def __init__(self, reader: NcReader, name: str):
+        self._reader = reader
+        self.name = name
+        self._sep = "/" if reader.is_hdf5 else GROUP_SEP
+
+    def _full(self, var: str) -> str:
+        return self.name + self._sep + var
+
+    def has(self, var: str) -> bool:
+        return self._reader.has(self._full(var))
+
+    def read(self, var: str, dtype=None) -> np.ndarray:
+        return self._reader.read(self._full(var), dtype)
+
+    def read_scalar(self, var: str, dtype=float):
+        return self._reader.read_scalar(self._full(var), dtype)
+
+    def variables(self) -> list:
+        if self._reader.is_hdf5:
+            grp = self._reader._h5[self.name]
+            return [k for k, v in grp.items() if isinstance(v, h5py.Dataset)]
+        prefix = self.name + GROUP_SEP
+        return [v[len(prefix):] for v in self._reader.variables()
+                if v.startswith(prefix)]
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+def set_scalars(path: str, values: dict, group: Optional[str] = None) -> None:
+    """Create or overwrite float64 scalar variables of an existing file,
+    in its own format: a NetCDF4 (HDF5) file through ``h5py`` (in HDF5
+    group ``group``), a classic file in place (as ``<group>.<name>``)."""
+    if _is_hdf5(path):
+        if h5py is None:
+            raise RuntimeError(f"{path} is a NetCDF4 (HDF5) file and h5py "
+                               "is not installed")
+        with h5py.File(path, "r+") as f:
+            root = f.require_group(group) if group else f
+            for k, v in values.items():
+                if k in root:
+                    root[k][...] = v
+                else:
+                    root.create_dataset(k, data=np.float64(v))
+        return
+    with netcdf_file(path, "a", mmap=False) as f:
+        for k, v in values.items():
+            name = group + GROUP_SEP + k if group else k
+            var = f.variables.get(name)
+            if var is None:
+                var = f.createVariable(name, "f8", ())
+            var[...] = v
 
 
 def _classic(data: np.ndarray) -> np.ndarray:

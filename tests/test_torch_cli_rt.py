@@ -196,7 +196,9 @@ def test_cli_rt_lite(lite_case):
     """The port's rt_lite on a box cloud: the JAX CLI's variables, its
     two-stream fluxes equal to JAX's solver on the same columns (float32
     rounding), the incident flux exact, energy closed; the camera flag
-    refused.  (The JAX CLI runs op by op: ~10 s here.)"""
+    refused without a camera group in the input (its render is held in
+    ``tests/test_torch_cli_bw.py``).  (The JAX CLI runs op by op: ~10 s
+    here.)"""
     from rte_rrtmgp_tpu.ops import rte_sw as jrte_sw
 
     out = _read(_run(lite_case, cli_rt_lite.main, [
@@ -232,8 +234,9 @@ def test_cli_rt_lite(lite_case):
               .mean(axis=(1, 2)).sum() * dz)
     toa = out["flux_tod_dn"].mean()
     assert abs(budget - toa) / toa < 0.03, (budget, toa)
-    with pytest.raises(SystemExit, match="A14"):
-        cli_rt_lite.main(["--bw-raytracing", "4", "--device", "cpu"])
+    with pytest.raises(KeyError, match="camera-settings"):
+        cli_rt_lite.main(["--bw-raytracing", "4", "--device", "cpu",
+                          "--input", str(lite_case / "rt_lite_input.nc")])
 
 
 def test_tica_tilt_matches_jax():

@@ -62,3 +62,14 @@ def test_package_imports_without_jax_nvcc_or_triton():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_camera_modules_are_checked():
+    """The camera tracer, its solver, CLI, tools and tuner are among the
+    files held to no JAX import above."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("models/raytracer_bw.py", "models/radiation_bw.py",
+                "cli_bw.py", "tools/set_virtual_camera.py",
+                "tools/image_from_xyz.py", "tools/box_cloud.py",
+                "tools/bench_bw.py", "tuning/tune_bw.py"):
+        assert "rte_rrtmgp_torch/" + mod in names, mod

@@ -8,8 +8,9 @@ card).  Run on a machine with an NVIDIA card with
 not use).  Tolerance: 1e-5 of each output's largest magnitude, for float32
 sums over g taken in another order than the twin's.  Also on the card:
 float64 through the twins (the golden case within its 5.8e-2 W m-2 gate,
-no launch), the forward tracer against the CPU (statistical) and
-``cli_rt`` with its gas-optics launch counts."""
+no launch), the forward and camera tracers against the CPU (statistical),
+``cli_rt`` and ``cli_bw`` with their gas-optics launch counts, and the
+camera solver in float64 through the twins (no launch)."""
 
 import json
 import os
@@ -23,13 +24,15 @@ from rte_rrtmgp_torch.ops.kernels import gas_optics_interp as b1
 from rte_rrtmgp_torch.ops.kernels import interp_rows as b45
 from rte_rrtmgp_torch.ops.kernels import solvers as b23
 from rte_rrtmgp_torch.ops import gas_optics as go, rte_lw, rte_sw
-from rte_rrtmgp_torch import cli, cli_rt
+from rte_rrtmgp_torch import cli, cli_bw, cli_rt
 from rte_rrtmgp_torch.cases import inputs
 from rte_rrtmgp_torch.cases.profiles import make_atmosphere
 from rte_rrtmgp_torch.data import synthetic
 from rte_rrtmgp_torch.models import (AerosolLUT, CloudLUT, KDist,
                                      RadiationSolverLW, RadiationSolverSW,
-                                     raytracer)
+                                     raytracer, raytracer_bw)
+from rte_rrtmgp_torch.models.radiation_bw import RadiationSolverBW
+from rte_rrtmgp_torch.tools import set_virtual_camera
 from rte_rrtmgp_torch.utils import ncio, tuner
 
 pytestmark = pytest.mark.gpu
@@ -492,6 +495,95 @@ def test_cli_rt_on_card_launches_gas_optics_kernel(cuda, tmp_path,
             assert np.isfinite(nc.read(v)).all(), v
         assert nc.read("rt_flux_abs_dir").shape == (9, 3, 4)
         assert (nc.read("rt_flux_tod_dn") > 0).all()
+
+
+def _camera_mean(device, seed):
+    rng = np.random.default_rng(2)
+    shape = (6, 6, 6)
+    kg = rng.uniform(2e-5, 1e-4, shape)
+    cld = np.where(rng.random(shape) < 0.3, rng.uniform(5e-4, 2e-3, shape),
+                   0.0)
+    f = [kg + cld, 0.7 * kg, 0.99 * cld, np.zeros(shape),
+         np.where(cld > 0, 0.85, 0.0), np.zeros(shape)]
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    cam = raytracer_bw.Camera(cam_type=0, nx=6, ny=5, fov=170.0,
+                              pitch_deg=-40.0, position=(1500.0, 1500.0, 300.0))
+    mu = float(np.sqrt(1 - 0.34))
+    count, _ = raytracer_bw.trace_rays_bw(
+        raytracer_bw._key(seed), cam, *map(t, f), t([2e-6, 1e-6]),
+        t([0.8, 0.9]), t(np.tile([1.0, 0.0, 0.0], (2, 1))),
+        t([3000.0, 5000.0, 9000.0]), t(np.full(shape[1:], 0.2)),
+        t(np.ones(shape[1:])), (2, 2, 2), (500.0, 500.0, 500.0),
+        np.array([0.5, 0.3, mu]), mu, photons_per_pixel=16)
+    assert bool(torch.isfinite(count).all())
+    return float(count.double().mean())
+
+
+def test_camera_tracer_on_card_matches_cpu(cuda):
+    """The camera render's domain-mean count on the card within 4 sigma of
+    the CPU's, sigma from the spread of 12 seeds on each side (a render's
+    spread is ~18% here; six seeds underestimate it)."""
+    a = np.array([_camera_mean(cuda, s) for s in range(12)])
+    b = np.array([_camera_mean("cpu", s) for s in range(12)])
+    sigma = np.sqrt((a.var(ddof=1) + b.var(ddof=1)) / len(a))
+    assert a.mean() > 0 and abs(a.mean() - b.mean()) <= 4 * sigma, (a, b)
+
+
+def _bw_case(tmp_path):
+    inputs.make_case_files(str(tmp_path), "allsky", gpt_per_band=1)
+    atm = make_atmosphere(4 * 3, 12, seed=3)
+    path = str(tmp_path / "rte_rrtmgp_input.nc")
+    inputs.write_input_nc(path, atm, 4, 3, rt_grid={"nz": 6, "sza": 0.4})
+    set_virtual_camera.main(["--name", path, "--toa", "--nx", "4", "--ny",
+                             "3"])
+    return atm
+
+
+@pytest.mark.parametrize("chunk", [None, 5])
+def test_cli_bw_on_card_launches_gas_optics_kernel(cuda, tmp_path,
+                                                   monkeypatch, chunk):
+    """``cli_bw`` on a small case on the card (classic camera group): one
+    gas-optics launch a ``gpt_chunk`` chunk (one without), none for the
+    cloud camera; the radiance and images finite."""
+    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
+    _bw_case(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    kernels.reset_launch_counts()
+    flags = ["--broadband", "--bw-raytracing", "4", "--cloud-optics",
+             "--cloud-cam", "--spectral-mode", "lanes"]
+    if chunk:
+        flags += ["--gpt-chunk", str(chunk)]
+    assert cli_bw.main(flags) == 0
+    got = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert got == {"gas_optics_interp": 1 if chunk is None else 3}
+    with ncio.NcReader("rte_rrtmgp_output.nc") as nc:
+        for v in nc.variables():
+            assert np.isfinite(nc.read(v)).all(), v
+        assert nc.read("radiance").shape == (3, 4)
+        assert nc.read("radiance").mean() > 0
+
+
+def test_camera_solver_float64_on_card_takes_twins(cuda, tmp_path):
+    """The camera solver in float64 on the card runs the plain twins (the
+    JAX package's rule: kernels for float32 only): no launch, finite
+    radiance."""
+    atm = _bw_case(tmp_path)
+    kd = KDist.from_raw(synthetic.make_kdist_raw(False, gpt_per_band=1),
+                        atm["gas_concs"].names(), dtype=torch.float64,
+                        device=cuda)
+    kernels.reset_launch_counts()
+    out = RadiationSolverBW(kd).solve(
+        gas_concs=atm["gas_concs"], p_lay=atm["p_lay"], p_lev=atm["p_lev"],
+        t_lay=atm["t_lay"], mu0=np.full(12, 0.8), azi=np.zeros(12),
+        sfc_alb=np.full((12, kd.nbnd), 0.2), land_use_map=np.ones(12),
+        camera=raytracer_bw.Camera(cam_type=2, nx=4, ny=3),
+        grid_cells=(6, 3, 4), grid_d=(2500.0, 1000.0, 1000.0),
+        kn_grid=(2, 2, 2), z_lev=np.asarray(atm["z_lev"]),
+        photons_per_pixel=4, mode="broadband", spectral_mode="lanes")
+    assert not any(kernels.launch_counts().values())
+    rad = out["radiance"]
+    assert rad.dtype == torch.float64 and rad.is_cuda
+    assert bool(torch.isfinite(rad).all()) and float(rad.mean()) > 0
 
 
 CLI_RUNS = {

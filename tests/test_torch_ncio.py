@@ -218,3 +218,43 @@ def test_total_solar_irradiance_matches_jax(files, dtype):
     jkd = JKDist.from_netcdf(files[0]["coefs_sw"], GASES,
                              dtype=getattr(np, dtype))
     assert kd.total_solar_irradiance() == jkd.total_solar_irradiance()
+
+
+@pytest.mark.parametrize("form", ["classic", "hdf5"])
+def test_group_convention(tmp_path, monkeypatch, form):
+    """A group's variables: the HDF5 group of a NetCDF4 file (the JAX
+    writers'), or ``<group>.<name>`` in a classic file (a classic name may
+    not contain ``/``).  ``set_scalars`` writes each file in its own form
+    (creating and overwriting); ``NcReader.group`` / ``has_group`` read
+    both; the classic form reads without ``h5py``."""
+    from rte_rrtmgp_tpu.utils.ncio import NcWriter as JNcWriter
+
+    path = str(tmp_path / "f.nc")
+    writer = ncio.NcWriter if form == "classic" else JNcWriter
+    with writer(path) as w:
+        w.write("t", np.arange(3.0), ("x",))
+        w.write_scalar("sza", 0.5)
+    ncio.set_scalars(path, {"px": 12.5, "nx": 64.0}, group="camera-settings")
+    ncio.set_scalars(path, {"px": 13.0}, group="camera-settings")
+    ncio.set_scalars(path, {"sza": 0.7, "azi": 0.1})
+    if form == "classic":
+        monkeypatch.setattr(ncio, "h5py", None)
+    with ncio.NcReader(path) as nc:
+        assert nc.is_hdf5 == (form == "hdf5")
+        assert nc.has_group("camera-settings")
+        assert not nc.has_group("camera") and not nc.has_group("t")
+        grp = nc.group("camera-settings")
+        assert sorted(grp.variables()) == ["nx", "px"]
+        assert grp.has("px") and not grp.has("py")
+        assert (grp.read_scalar("px"), grp.read_scalar("nx")) == (13.0, 64.0)
+        assert (nc.read_scalar("sza"), nc.read_scalar("azi")) == (0.7, 0.1)
+        np.testing.assert_array_equal(nc.read("t"), np.arange(3.0))
+        top = set(nc.variables())
+        with pytest.raises(KeyError, match="other"):
+            nc.group("other")
+    if form == "classic":
+        assert {"camera-settings.px", "camera-settings.nx"} <= top
+    else:
+        assert top == {"t", "sza", "azi"} | _dim_scales(path)
+        with JNcReader(path) as jr:
+            assert jr.group("camera-settings").read_scalar("px") == 13.0

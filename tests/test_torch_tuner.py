@@ -167,21 +167,28 @@ def test_cpu_solve_never_reads_a_card_winner(isolated_cache, monkeypatch):
 
 def test_checked_in_table_names_only_cards(isolated_cache, monkeypatch):
     """Every entry of the checked-in table is a card's sweep with the card's
-    name beside it — the radiation step's (``tune_radiation.py``) or the
-    forward tracer's (``tune_rt.py``, key ``rt_trace``) — and resolves for
-    its device kind."""
+    name beside it — the radiation step's (``tune_radiation.py``), the
+    forward tracer's (``tune_rt.py``, key ``rt_trace``) or the camera
+    renderer's (``tune_bw.py``, key ``bw_render``) — and resolves for its
+    device kind."""
     with open(tuner.defaults_path()) as f:
         table = json.load(f)
     real = tuner.device_kind
     for k, entry in table.items():
         name, static, kind = json.loads(k)
         assert kind.startswith("cuda:"), k
-        assert name in ("radiation_step", "rt_trace"), k
+        assert name in ("radiation_step", "rt_trace", "bw_render"), k
         if name == "radiation_step":
             assert set(static) == {"ncol", "nlay"}
             assert set(entry["config"]) == {"gpt_chunk", "cellw",
                                             "layermajor"}
             assert entry["rounds"] >= 10
+        elif name == "bw_render":
+            assert set(static) == {"cam", "ppp"}
+            assert entry["config"]["respawn_mode"] in ("fifo", "pool")
+            assert set(entry["config"]) == {"respawn_mode",
+                                            "steps_per_dispatch"}
+            assert entry["rounds"] >= 1
         else:
             assert set(static) == {"nx", "nz", "ppp"}
             assert entry["config"]["respawn_mode"] in ("fifo", "arith", "pool")
@@ -198,3 +205,4 @@ def test_checked_in_table_names_only_cards(isolated_cache, monkeypatch):
     monkeypatch.setattr(tuner, "device_kind", real)
     assert tuner.best_kernel_opts("cpu") is None
     assert tuner.best_workload_opts("rt_trace", "cpu") is None
+    assert tuner.best_workload_opts("bw_render", "cpu") is None

@@ -43,7 +43,7 @@ from rte_rrtmgp_torch.utils import ncio
 torch.set_num_threads(2)
 
 NX, NY, NLAY, NZ = 4, 3, 12, 6
-FLAGS = ["--broadband", "--bw-raytracing", "2", "--cloud-optics",
+FLAGS = ["--broadband", "--bw-raytracing", "1", "--cloud-optics",
          "--cloud-cam"]
 CAM_IMAGES = ("liq_ice_wp_cam", "tau_cld_cam", "dist_cld_cam", "zen_cam")
 RT = {"nz": NZ, "sza": 0.4}

@@ -75,8 +75,10 @@ Phases (any failure ends the run with a nonzero exit):
    (device events a step, busy share); ``cli_bw`` on the ``rcemip``
    atmosphere (64x64 columns, 256 layers, the lowest ``BW_CLI_NZ`` rendered
    in 3D, a ``BW_CLI_CAM``-pixel TOA camera written in the classic form)
-   broadband with ``--cloud-optics --cloud-cam``, then ``--image --n-sub
-   2``, each timed as gas optics + render, with its peak device memory and
+   broadband with ``--cloud-optics --cloud-cam --nee-mode field`` in the
+   CLI's default scan (scan and the field NEE at the user's entry point),
+   then ``--image --n-sub 2`` in ``lanes`` with the walk NEE, each timed
+   as gas optics + render, with its peak device memory and
    its exact gas-optics launch count, the launches replayed against their
    twins; ``cli_rt_lite --bw-raytracing`` on the bench optics; physics
    checks (the vacuum Lambertian limit, an absorbing
@@ -838,10 +840,12 @@ def bw_phase(dev, card, record, replay):
                        else {})}
     files = ["--input", paths["input"], "--coefs-sw", paths["coefs_sw"],
              "--cloud-sw", paths["cloud_sw"]]
-    common = ["--cloud-optics", "--bw-raytracing", str(BW_CLI_PPP),
-              "--spectral-mode", "lanes", "--steps-per-dispatch", "off"]
-    runs = {"broadband": ["--broadband", "--cloud-cam"],
-            "image": ["--image", "--n-sub", "2"]}
+    # The broadband run takes the CLI's defaults (scan, one window) with
+    # the field NEE; the image run the batched lanes with the walk.
+    common = ["--cloud-optics", "--bw-raytracing", str(BW_CLI_PPP)]
+    runs = {"broadband": ["--broadband", "--cloud-cam", "--nee-mode", "field"],
+            "image": ["--image", "--n-sub", "2", "--spectral-mode", "lanes",
+                      "--steps-per-dispatch", "off"]}
     timing = {}
     orig_planes = radiation_bw.gas_planes
     orig_solve = radiation_bw.RadiationSolverBW.solve

@@ -176,7 +176,8 @@ class RadiationSolverBW:
               gpt_chunk: Optional[int] = None, seed: int = 0,
               bg_column: str = "first", steps_per_dispatch=4,
               nee_mode: str = "walk", spectral_mode: str = "scan",
-              respawn_mode: str = "auto", return_aux: bool = False):
+              respawn_mode: str = "auto", return_aux: bool = False,
+              spectral_steps: slice = slice(None)):
         """Render a camera view.  mode="image" -> {"XYZ": (3, ny, nx),
         "radiance"}; mode="broadband" -> {"radiance": (ny, nx)}.
 
@@ -184,7 +185,9 @@ class RadiationSolverBW:
         spans z_lev[nz:]); surface at layer 0.  ``steps_per_dispatch``:
         spectral steps a window (None or "auto": one window).  ``seed``
         makes the solve's key.  With ``return_aux`` also a dict with each
-        trace's loop counts (``"traces"``).
+        trace's loop counts (``"traces"``).  ``spectral_steps``: the slice
+        of the spectral steps to render (all; ``tools/bench_bw`` times
+        one step's loop with a slice of one).
         """
         kd = self.kdist
         dtype, dev = kd.dtype, kd.device
@@ -223,7 +226,7 @@ class RadiationSolverBW:
                 aer = optics_ops.delta_scale(aer)
 
         # --- spectral step table (host) ---
-        steps = spectral_weights(kd, n_sub)
+        steps = spectral_weights(kd, n_sub)[spectral_steps]
         ft = numpy_dtype(dtype)
         igpt_arr = np.array([s[0] for s in steps], np.int64)
         band_arr = np.array([s[1] for s in steps], np.int64)

@@ -65,7 +65,7 @@ from .raytracer import (W_THRES, _henyey_sample, _mie_phase_value,
 COS_HALF_ANGLE = 0.9999891776066407
 SUN_SOLID_ANGLE = 6.799910294339209e-05
 CHECK_EVERY = 8     # photon-loop steps between host reads
-WALK_BLOCK = 2      # walk sub-steps between host reads (at most 8)
+WALK_BLOCK = 2      # walk sub-steps between host reads (8 cost the same)
 
 # ---------------------------------------------------------------------------
 # The random stream: a tree of integer keys.
@@ -244,6 +244,13 @@ def _camera_rays_for(camera: Camera, pix, u1, u2, size, z_top, dtype):
     pos = torch.cat([torch.remainder(pos[:, 0:1], size_x),
                      torch.remainder(pos[:, 1:2], size_y), pos[:, 2:]], dim=1)
     return pos, direction
+
+
+def default_rays_per_lane(n_photons: int, photons_per_pixel: int) -> int:
+    """Camera rays a lane traces in turn (the forward tracer's
+    photons-per-thread amortization), targeting ~32k lanes: below 65,536
+    rays every lane traces one and no lane respawns."""
+    return max(1, min(photons_per_pixel, n_photons // 32768))
 
 
 def _resolve_respawn_mode(mode: str, device) -> str:
@@ -448,13 +455,10 @@ def _trace_bw_impl(keys, camera: Camera,
     ncell3, ncol2 = nz * ny * nx, ny * nx
     npix = camera.npix
     n_photons = npix * photons_per_pixel
-    # Each lane traces rays_per_lane camera rays in turn (the forward
-    # tracer's photons-per-thread amortization): target ~32k lanes.
-    if rays_per_lane is None:
-        rays_per_lane = max(1, min(photons_per_pixel, n_photons // 32768))
-    while n_photons % rays_per_lane:
-        rays_per_lane -= 1
-    rpl = rays_per_lane
+    rpl = (default_rays_per_lane(n_photons, photons_per_pixel)
+           if rays_per_lane is None else rays_per_lane)
+    while n_photons % rpl:
+        rpl -= 1
     n_lanes = n_photons // rpl
     # Scalars rounded in the working dtype, as the JAX package computes them.
     dz, dy, dx = (ft(v) for v in grid_d)

@@ -13,13 +13,12 @@ Reports ms per frame (CUDA events around synchronized frames on the card,
 the host clock on the CPU), camera rays/s (pixels x ppp x spectral steps /
 s), the photon-loop steps and the sun-transmission walk's sub-steps of the
 frame, and ms a step by width phase (host clock).  ``--steps A:B`` renders
-only spectral steps A..B-1 of the frame (one step's loop costs),
-``--walk-block N`` runs the walk N sub-steps between host reads.
+only spectral steps A..B-1 of the frame (one step's loop costs).
 
 Usage (on a machine with a card):
     python -m rte_rrtmgp_torch.tools.bench_bw [--cam 64] [--ppp 16]
         [--nee walk|field] [--spectral scan|lanes] [--spd 4]
-        [--respawn auto|pool|fifo] [--steps A:B] [--walk-block N]
+        [--respawn auto|pool|fifo] [--steps A:B]
 """
 
 from __future__ import annotations
@@ -34,7 +33,6 @@ import torch
 from ..cases.profiles import make_atmosphere
 from ..data import synthetic
 from ..models import KDist
-from ..models import radiation_bw
 from ..models import raytracer_bw as rbw
 from ..models.radiation_bw import RadiationSolverBW
 
@@ -61,7 +59,7 @@ def make_render(cam: int = 64, ppp: int = 16, nee_mode: str = "walk",
     solver = RadiationSolverBW(kd)
     ncol = NY * NX
 
-    def solve(seed):
+    def render(seed):
         return solver.solve(
             gas_concs=atm["gas_concs"], p_lay=atm["p_lay"],
             p_lev=atm["p_lev"], t_lay=atm["t_lay"],
@@ -73,16 +71,7 @@ def make_render(cam: int = 64, ppp: int = 16, nee_mode: str = "walk",
             mode="broadband", seed=seed, nee_mode=nee_mode,
             spectral_mode=spectral_mode,
             steps_per_dispatch=steps_per_dispatch, respawn_mode=respawn_mode,
-            return_aux=True)
-
-    def render(seed):
-        weights = radiation_bw.spectral_weights
-        radiation_bw.spectral_weights = lambda kd, n_sub: weights(
-            kd, n_sub)[steps]
-        try:
-            return solve(seed)
-        finally:
-            radiation_bw.spectral_weights = weights
+            return_aux=True, spectral_steps=steps)
     return render, len(range(kd.ngpt)[steps])
 
 
@@ -165,8 +154,6 @@ def main(argv=None) -> int:
     p.add_argument("--respawn", default="auto",
                    choices=("auto", "pool", "fifo"))
     p.add_argument("--steps", default=":", help="spectral steps A:B")
-    p.add_argument("--walk-block", type=int, default=rbw.WALK_BLOCK,
-                   help="walk sub-steps between host reads (at most 8)")
     p.add_argument("--iters", type=int, default=1)
     p.add_argument("--reps", type=int, default=1)
     p.add_argument("--device", default="cuda")
@@ -174,7 +161,6 @@ def main(argv=None) -> int:
     from .. import config
 
     dev = config.resolve_device(a.device)
-    rbw.WALK_BLOCK = a.walk_block
     steps = slice(*(int(v) if v else None for v in a.steps.split(":")))
     res = measure_bw(a.cam, a.ppp, a.iters, a.reps, warmup=True, device=dev,
                      nee_mode=a.nee, spectral_mode=a.spectral,

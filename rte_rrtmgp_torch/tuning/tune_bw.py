@@ -14,10 +14,17 @@ with the card's name and power limit.  ``trace_rays_bw(respawn_mode=
 "auto")`` — what ``RadiationSolverBW`` asks for — then resolves
 ``RTE_RRTMGP_BW_RESPAWN`` > this winner's respawn mode > ``pool``.
 
+The sweep must be one where the modes differ: below 65,536 camera rays
+(64x64 px at 8 photons a pixel and less) every lane traces one ray, no
+lane respawns, and pool and fifo run the same loop, so the tuner refuses
+such a frame; it refuses fewer than 3 rounds too.  Check a winner in only
+where it beats pool by more than the quartile spread: ``auto`` reads it
+for every render on the card.
+
 All in one process: the renderer takes its knobs as arguments.
 
 Usage (on a machine with a card):
-    python -m rte_rrtmgp_torch.tuning.tune_bw [--cam 64] [--ppp 8] [--rounds 2]
+    python -m rte_rrtmgp_torch.tuning.tune_bw [--cam 64] [--ppp 16] [--rounds 3]
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import time
 import torch
 
 from .. import config
+from ..models import raytracer_bw
 from ..tools import bench_bw
 from ..utils import tuner
 from .tune_radiation import _card
@@ -63,11 +71,17 @@ def sweep(cam: int, ppp: int, candidates, rounds: int, device):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--cam", type=int, default=64)
-    p.add_argument("--ppp", type=int, default=8)
-    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--ppp", type=int, default=16)
+    p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--defaults", default=tuner.defaults_path(),
                    help="checked-in winners table to update")
     a = p.parse_args(argv)
+    n_rays = a.cam * a.cam * a.ppp
+    if raytracer_bw.default_rays_per_lane(n_rays, a.ppp) < 2:
+        p.error(f"{a.cam}x{a.cam} px at {a.ppp} ppp: {n_rays} camera rays, "
+                "one a lane, so no lane respawns and the modes cannot differ")
+    if a.rounds < 3:
+        p.error("--rounds: at least 3 (a median and its quartiles)")
 
     dev = config.resolve_device("cuda")
     card = _card()

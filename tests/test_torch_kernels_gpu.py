@@ -544,15 +544,19 @@ def test_cli_bw_on_card_launches_gas_optics_kernel(cuda, tmp_path,
                                                    monkeypatch, chunk):
     """``cli_bw`` on a small case on the card (classic camera group): one
     gas-optics launch a ``gpt_chunk`` chunk (one without), none for the
-    cloud camera; the radiance and images finite."""
+    cloud camera; the radiance and images finite.  Without a chunk in
+    ``lanes`` with the walk NEE; with chunks in the CLI's default scan
+    with the field NEE."""
     monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
     _bw_case(tmp_path)
     monkeypatch.chdir(tmp_path)
     kernels.reset_launch_counts()
     flags = ["--broadband", "--bw-raytracing", "4", "--cloud-optics",
-             "--cloud-cam", "--spectral-mode", "lanes"]
+             "--cloud-cam"]
     if chunk:
-        flags += ["--gpt-chunk", str(chunk)]
+        flags += ["--gpt-chunk", str(chunk), "--nee-mode", "field"]
+    else:
+        flags += ["--spectral-mode", "lanes"]
     assert cli_bw.main(flags) == 0
     got = {k: v for k, v in kernels.launch_counts().items() if v}
     assert got == {"gas_optics_interp": 1 if chunk is None else 3}

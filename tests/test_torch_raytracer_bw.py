@@ -18,8 +18,14 @@ raytracer_bw.py``) against the JAX package's, on the same NumPy inputs.
   test compares a crossing's rounding noise with eps (``pos_cross z <
   eps``), so a ray that reaches the ground takes its surface event a step
   earlier or later under another rounding (compiled XLA's fused products
-  and its own transcendentals against PyTorch's), which no replay can
-  match.  The surface physics is checked statistically below.
+  and its own transcendentals against PyTorch's), which no long replay can
+  match.
+* Truncated replay over the ground, against JAX run op by op
+  (``jax.disable_jit``): without the opaque layer, a TOA camera over mixed
+  land (Lambertian) and water (specular) for 10 steps, and a camera aimed
+  at the sun's mirror image over water, whose glints score, for 3 steps
+  (the first ground hit; at the 4th, compiled and op-by-op JAX already
+  differ from each other).
 * Statistical: the vacuum Lambertian limit, an absorbing layer's
   attenuation, fifo against pool, field against walk NEE, and a batched
   render (the solver's ``lanes`` mode) equal to separate renders up to
@@ -186,18 +192,18 @@ def jax_stream(monkeypatch):
                             key, shape, jnp.float64))))
 
 
-def _domain(seed=3):
+def _domain(seed=3, opaque=True, land=None):
     """A tiny heterogeneous domain (gas, broken cloud, aerosol) above an
-    opaque absorbing lowest layer, a 3-layer background column, mixed
-    land and water."""
+    opaque absorbing lowest layer (or none), a 3-layer background column,
+    mixed land and water (or everywhere ``land``: 1 land, 0 water)."""
     rng = np.random.default_rng(seed)
     sh = (NZ, NY, NX)
     kg = rng.uniform(1e-5, 1e-4, sh)
     cld = np.where(rng.random(sh) < 0.4, rng.uniform(1e-3, 5e-3, sh), 0.0)
     ka = rng.uniform(0.0, 2e-5, sh)
-    opaque = np.zeros(sh)
-    opaque[0] = 50.0 / GRID_D[0]
-    fields = [kg + cld + ka + opaque, 0.5 * kg, 0.99 * cld, 0.8 * ka,
+    k_opaque = np.zeros(sh)
+    k_opaque[0] = 50.0 / GRID_D[0] if opaque else 0.0
+    fields = [kg + cld + ka + k_opaque, 0.5 * kg, 0.99 * cld, 0.8 * ka,
               np.where(cld > 0, 0.85, 0.0), np.full(sh, 0.7)]
     kbg = 3
     bg = [rng.uniform(1e-6, 1e-5, kbg), rng.uniform(0.3, 0.9, kbg),
@@ -205,21 +211,30 @@ def _domain(seed=3):
           NZ * GRID_D[0] + np.arange(kbg + 1) * 1000.0]
     sfc = [rng.uniform(0.05, 0.3, (NY, NX)),
            (rng.random((NY, NX)) < 0.5).astype(float)]
+    if land is not None:
+        sfc[1] = np.full((NY, NX), float(land))
     return fields, bg, sfc, rng.uniform(3.0, 15.0, sh)
 
 
-def _replay(cam, kn, seed, kw, mie=None):
-    fields, bg, sfc, reff = _domain()
+def _replay(cam, kn, seed, kw, mie=None, eager=False, **domain):
+    """JAX's render (compiled, or op by op if ``eager``) against the
+    port's with JAX's stream; returns JAX's counts and the port's aux."""
+    fields, bg, sfc, reff = _domain(**domain)
     mie_kw, jmie = {}, {}
     if mie is not None:
         mie_kw = dict(r_eff=_t(reff), **{k: _t(v) for k, v in mie.items()})
         jmie = dict(r_eff=jnp.asarray(reff),
                     **{k: jnp.asarray(v) for k, v in mie.items()})
-    ref = jax.jit(lambda key, f, b, s, m: jbw.trace_rays_bw(
+    render = lambda key, f, b, s, m: jbw.trace_rays_bw(
         key, _jcam(cam), *f, *b, *s, kn, GRID_D, jnp.asarray(SUN), MU0,
-        **m, **kw))(jax.random.PRNGKey(seed), [jnp.asarray(a) for a in fields],
-                    [jnp.asarray(a) for a in bg], [jnp.asarray(a) for a in sfc],
-                    jmie)
+        **m, **kw)
+    args = (jax.random.PRNGKey(seed), [jnp.asarray(a) for a in fields],
+            [jnp.asarray(a) for a in bg], [jnp.asarray(a) for a in sfc], jmie)
+    if eager:
+        with jax.disable_jit():
+            ref = render(*args)
+    else:
+        ref = jax.jit(render)(*args)
     (got, shot), aux = bw.trace_rays_bw(
         jax.random.PRNGKey(seed), cam, *map(_t, fields), *map(_t, bg),
         *map(_t, sfc), kn, GRID_D, SUN, MU0, return_aux=True, **mie_kw, **kw)
@@ -229,12 +244,12 @@ def _replay(cam, kn, seed, kw, mie=None):
     assert np.abs(a).max() > 0
     assert np.abs(a - got.numpy()).max() <= 1e-9 * np.abs(a).max(), (
         np.abs(a - got.numpy()).max(), np.abs(a).max())
-    return aux
+    return a, aux
 
 
 def test_truncated_replay_pool_walk(jax_stream):
     """Pool respawn, 2 rays a lane (respawn fires), walk NEE, fisheye."""
-    aux = _replay(CAMERAS[0], KN, 5, dict(
+    _, aux = _replay(CAMERAS[0], KN, 5, dict(
         photons_per_pixel=8, rays_per_lane=2, max_steps=40,
         respawn_mode="pool", nee_mode="walk"))
     assert aux["steps"] == 40 and aux["sub_steps"] > 0
@@ -242,7 +257,7 @@ def test_truncated_replay_pool_walk(jax_stream):
 
 def test_truncated_replay_fifo_walk(jax_stream):
     """Fifo respawn (the global ray queue), walk NEE, TOA camera."""
-    aux = _replay(CAMERAS[3], KN, 7, dict(
+    _, aux = _replay(CAMERAS[3], KN, 7, dict(
         photons_per_pixel=8, rays_per_lane=2, max_steps=40,
         respawn_mode="fifo", nee_mode="walk"))
     assert aux["steps"] == 40 and aux["sub_steps"] > 0
@@ -261,6 +276,33 @@ def test_truncated_replay_mie_field(jax_stream):
     _replay(cam, (2, 3, 2), 9, dict(
         photons_per_pixel=6, rays_per_lane=2, max_steps=30,
         respawn_mode="pool", nee_mode="field"), mie=mie)
+
+
+GLINT_CAM = bw.Camera(cam_type=1, nx=4, ny=3, fov=0.3,
+                      yaw_deg=float(np.degrees(np.arctan2(SUN[1], SUN[0]))),
+                      pitch_deg=float(np.degrees(np.arcsin(SUN[2]))),
+                      position=(900.0, 700.0, 650.0))
+
+
+@pytest.mark.parametrize("case", ["lambertian_specular", "glint"])
+def test_truncated_replay_over_ground_eager(jax_stream, case):
+    """Rays that reach the surface, against JAX run op by op: a TOA camera
+    over mixed land and water for 10 steps (Lambertian bounces, specular
+    reflections of direct rays), and a camera looking down at the sun's
+    mirror image over water for 3 steps, where the specular NEE scores
+    glints (each ~1e4 times a Lambertian event)."""
+    kw = dict(photons_per_pixel=8, rays_per_lane=2, nee_mode="walk")
+    if case == "glint":
+        a, aux = _replay(GLINT_CAM, KN, 5, dict(kw, max_steps=3,
+                                                respawn_mode="pool"),
+                         eager=True, opaque=False, land=0)
+        assert a.max() > 1e-2
+    else:
+        a, aux = _replay(CAMERAS[3], KN, 7, dict(kw, max_steps=10,
+                                                 respawn_mode="fifo"),
+                         eager=True, opaque=False)
+        assert 0 < a.max() < 1e-4
+    assert aux["sub_steps"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ from rte_rrtmgp_tpu.utils import tuner as jtuner
 from rte_rrtmgp_torch import config
 from rte_rrtmgp_torch.cases.profiles import make_atmosphere
 from rte_rrtmgp_torch.data import synthetic
-from rte_rrtmgp_torch.models import KDist, RadiationSolverLW
+from rte_rrtmgp_torch.models import KDist, RadiationSolverLW, raytracer_bw
 from rte_rrtmgp_torch.ops import rte_lw
 from rte_rrtmgp_torch.utils import tuner
 
@@ -185,10 +185,13 @@ def test_checked_in_table_names_only_cards(isolated_cache, monkeypatch):
             assert entry["rounds"] >= 10
         elif name == "bw_render":
             assert set(static) == {"cam", "ppp"}
+            n_rays = static["cam"] ** 2 * static["ppp"]
+            assert raytracer_bw.default_rays_per_lane(
+                n_rays, static["ppp"]) >= 2, "no lane respawns in the sweep"
             assert entry["config"]["respawn_mode"] in ("fifo", "pool")
             assert set(entry["config"]) == {"respawn_mode",
                                             "steps_per_dispatch"}
-            assert entry["rounds"] >= 1
+            assert entry["rounds"] >= 3
         else:
             assert set(static) == {"nx", "nz", "ppp"}
             assert entry["config"]["respawn_mode"] in ("fifo", "arith", "pool")
@@ -206,3 +209,17 @@ def test_checked_in_table_names_only_cards(isolated_cache, monkeypatch):
     assert tuner.best_kernel_opts("cpu") is None
     assert tuner.best_workload_opts("rt_trace", "cpu") is None
     assert tuner.best_workload_opts("bw_render", "cpu") is None
+
+
+@pytest.mark.parametrize("argv", [["--ppp", "8"], ["--cam", "32"],
+                                  ["--rounds", "2"]])
+def test_camera_tuner_refuses_a_sweep_that_cannot_tell_the_modes(argv):
+    """``tune_bw.py`` stops before it renders when no lane respawns (64x64
+    px at 8 photons a pixel; 32x32 at 16) — pool and fifo then run the
+    same loop — or with fewer than 3 rounds."""
+    from rte_rrtmgp_torch.tuning import tune_bw
+
+    assert raytracer_bw.default_rays_per_lane(64 * 64 * 16, 16) == 2
+    with pytest.raises(SystemExit) as e:
+        tune_bw.main(argv)
+    assert e.value.code == 2

@@ -13,6 +13,20 @@ def takes_twin(t: torch.Tensor) -> bool:
     return t.device.type == "cpu" or t.dtype == torch.float64
 
 
+def refuse_grad(name: str, *ts) -> None:
+    """Raise where autograd would need a path back through kernel ``name``:
+    grad mode is on and one of the (float32 CUDA) inputs ``ts`` requires
+    grad.  The kernels have no backward, as the JAX package's Pallas kernels
+    have no transpose rule; the plain twins, which float64 and the CPU take,
+    differentiate."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(
+            f"{name}: an input requires grad and the float32 CUDA kernel has "
+            "no backward; differentiate in float64, whose plain twins carry "
+            "the gradient, or call it under torch.no_grad()")
+
+
 def require(name: str, t: torch.Tensor, device: torch.device, dtype,
             shape=None, contiguous: bool = True) -> None:
     """Raise unless ``t`` is on ``device`` (a CUDA device), has ``dtype``,
@@ -30,4 +44,7 @@ def require(name: str, t: torch.Tensor, device: torch.device, dtype,
 
 
 def stream_handle(device: torch.device) -> int:
+    """The current stream of ``device``.  A launch runs under
+    ``torch.cuda.device(device)`` as well, so the kernel starts on its
+    tensors' device whatever the current device is."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -18,7 +18,7 @@ import functools
 import torch
 
 from . import _build
-from ._checks import takes_twin, require, stream_handle
+from ._checks import takes_twin, refuse_grad, require, stream_handle
 
 TILE_CELLS = 32     # cells a block (measured: PERF.md §6, PR 3)
 THREADS = 256       # threads a block
@@ -152,25 +152,29 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
     require("fmajor", interp.fmajor, dev, f32, (C, L, 8 * F))
     require("sc", sc, dev, f32, (C, L, len(specs)))
 
+    refuse_grad("gas_optics_interp", kd.kmajor_rows, tab_b, kmin_lo, kmin_up,
+                interp.col_mix, interp.fminor, interp.fmajor, sc)
     gflav = gas_optics.gpoint_flavor_tensor(kd.gpoint_flavor, dev)
     ent_off, ent, nent, quad = _minor_entries(specs, G, dev)
     geo = interp_geometry(C, L, G, F, len(specs), nent, TILE_CELLS, THREADS)
     out_a = torch.empty((C, L, G), dtype=f32, device=dev)
     out_b = torch.empty((C, L, G), dtype=f32, device=dev)
-    rc = _build.library().rrtmgp_gas_optics_interp_f32(
-        kd.kmajor_rows.data_ptr(), kd.kmajor_rows.stride(0),
-        kd.kmajor_rows.stride(1),
-        tab_b.data_ptr(), tab_b.stride(0), tab_b.stride(1), int(rayleigh),
-        kmin_lo.data_ptr(), kmin_lo.shape[2], kmin_up.data_ptr(),
-        kmin_up.shape[2],
-        interp.jtemp0.data_ptr(), interp.jpress0.data_ptr(),
-        interp.itropo01.data_ptr(), interp.jeta0.data_ptr(),
-        interp.col_mix.data_ptr(), interp.fminor.data_ptr(),
-        interp.fmajor.data_ptr(), gflav.data_ptr(), sc.data_ptr(), len(specs),
-        ent_off.data_ptr(), ent.data_ptr(), nent, quad.data_ptr(),
-        out_a.data_ptr(),
-        out_b.data_ptr(), C, L, G, F, kd.ntemp, kd.neta, geo.axis, geo.tc,
-        geo.threads, stream_handle(dev))
+    with torch.cuda.device(dev):
+        rc = _build.library().rrtmgp_gas_optics_interp_f32(
+            kd.kmajor_rows.data_ptr(), kd.kmajor_rows.stride(0),
+            kd.kmajor_rows.stride(1),
+            tab_b.data_ptr(), tab_b.stride(0), tab_b.stride(1),
+            int(rayleigh),
+            kmin_lo.data_ptr(), kmin_lo.shape[2], kmin_up.data_ptr(),
+            kmin_up.shape[2],
+            interp.jtemp0.data_ptr(), interp.jpress0.data_ptr(),
+            interp.itropo01.data_ptr(), interp.jeta0.data_ptr(),
+            interp.col_mix.data_ptr(), interp.fminor.data_ptr(),
+            interp.fmajor.data_ptr(), gflav.data_ptr(), sc.data_ptr(),
+            len(specs), ent_off.data_ptr(), ent.data_ptr(), nent,
+            quad.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), C, L, G, F,
+            kd.ntemp, kd.neta, geo.axis, geo.tc, geo.threads,
+            stream_handle(dev))
     _build.check(rc, "gas_optics_interp")
     _build.LAUNCHES["gas_optics_interp"] += 1
     return out_a, out_b

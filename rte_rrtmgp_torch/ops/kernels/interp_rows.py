@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._checks import takes_twin, require, stream_handle
+from ._checks import takes_twin, refuse_grad, require, stream_handle
 
 
 def _launch(name, tables, rows_list, jes, fms, fp, cms_list):
@@ -55,6 +55,8 @@ def _launch(name, tables, rows_list, jes, fms, fp, cms_list):
                 require(f"cms[{k}][{i}]", t, dev, f32, (N, G))
         out = torch.empty((N, G), dtype=f32, device=dev)
         ops.append((tab, rows, cms, out))
+    refuse_grad(name, *fms, fp, *tables,
+                *(t for cms in cms_list if cms is not None for t in cms))
     args = []
     for tab, rows, cms, out in ops + [(None, None, None, None)] * (2 - len(ops)):
         if tab is None:
@@ -64,10 +66,11 @@ def _launch(name, tables, rows_list, jes, fms, fp, cms_list):
                  rows.data_ptr(), rows.shape[1],
                  None if cms is None else cms[0].data_ptr(),
                  None if cms is None else cms[1].data_ptr(), out.data_ptr()]
-    rc = _build.library().rrtmgp_interp_rows_f32(
-        len(ops), *args, *(t.data_ptr() for t in jes),
-        *(t.data_ptr() for t in fms), None if fp is None else fp.data_ptr(),
-        N, G, stream_handle(dev))
+    with torch.cuda.device(dev):
+        rc = _build.library().rrtmgp_interp_rows_f32(
+            len(ops), *args, *(t.data_ptr() for t in jes),
+            *(t.data_ptr() for t in fms),
+            None if fp is None else fp.data_ptr(), N, G, stream_handle(dev))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     return [out for _, _, _, out in ops]

@@ -34,7 +34,7 @@ import torch
 
 from ... import config
 from . import _build
-from ._checks import takes_twin, require, stream_handle
+from ._checks import takes_twin, refuse_grad, require, stream_handle
 
 MAX_G = 1024   # one thread per g-point in a block
 SW_SLOTS = 5   # (nlay+1) x gt slots of a block's working set (sw_2stream.cu)
@@ -162,15 +162,17 @@ def _lw_launch(name, ncol, nlay, G, planes, sfc, D, w):
     layer and level planes (three column-major, five layer-major), ``sfc``
     the four (ncol, G) surface and boundary inputs."""
     dev, f32 = planes[0].device, torch.float32
+    refuse_grad(name, *planes, *sfc)
     geo = lw_geometry(ncol, nlay, G, LW_BLOCK_G)
     up, dn, jac = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
     scratch = (torch.empty(geo.scratch_floats, dtype=f32, device=dev)
                if geo.scratch_floats else None)
-    rc = getattr(_build.library(), f"rrtmgp_{name}_f32")(
-        *(t.data_ptr() for t in planes), *(t.data_ptr() for t in sfc),
-        up.data_ptr(), dn.data_ptr(), jac.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), ncol, nlay, G,
-        geo.gb, *_lw_constants(D, w), stream_handle(dev))
+    with torch.cuda.device(dev):
+        rc = getattr(_build.library(), f"rrtmgp_{name}_f32")(
+            *(t.data_ptr() for t in planes), *(t.data_ptr() for t in sfc),
+            up.data_ptr(), dn.data_ptr(), jac.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), ncol, nlay, G,
+            geo.gb, *_lw_constants(D, w), stream_handle(dev))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     return up, dn, jac
@@ -292,19 +294,22 @@ def _sw_launch(name, plane, ncol, nlay, G, tau, ssa, g, mu0, sfc_alb_dir,
         require(pname, t, dev, f32, (ncol, G))
     if inc_flux_dif is not None:
         require("inc_flux_dif", inc_flux_dif, dev, f32, (ncol, G))
+    refuse_grad(name, tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
+                inc_flux_dir, inc_flux_dif)
     geo = sw_geometry(ncol, nlay, G, SW_TILE, SW_THREADS)
     up, dn, fdir = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
     scratch = (torch.empty(geo.scratch_floats, dtype=f32, device=dev)
                if geo.scratch_floats else None)
-    rc = getattr(_build.library(), f"rrtmgp_{name}_f32")(
-        tau.data_ptr(), ssa.data_ptr(), g.data_ptr(), mu0.data_ptr(),
-        sfc_alb_dir.data_ptr(), sfc_alb_dif.data_ptr(),
-        inc_flux_dir.data_ptr(),
-        None if inc_flux_dif is None else inc_flux_dif.data_ptr(),
-        up.data_ptr(), dn.data_ptr(), fdir.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        ncol, nlay, G, geo.gt, geo.threads, config.k_min(f32),
-        config.eps(f32), stream_handle(dev))
+    with torch.cuda.device(dev):
+        rc = getattr(_build.library(), f"rrtmgp_{name}_f32")(
+            tau.data_ptr(), ssa.data_ptr(), g.data_ptr(), mu0.data_ptr(),
+            sfc_alb_dir.data_ptr(), sfc_alb_dif.data_ptr(),
+            inc_flux_dir.data_ptr(),
+            None if inc_flux_dif is None else inc_flux_dif.data_ptr(),
+            up.data_ptr(), dn.data_ptr(), fdir.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            ncol, nlay, G, geo.gt, geo.threads, config.k_min(f32),
+            config.eps(f32), stream_handle(dev))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     return up, dn + fdir, fdir

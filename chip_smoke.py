@@ -85,7 +85,17 @@ Phases (any failure ends the run with a nonzero exit):
    layer, fifo against pool, field against walk NEE), the render on the
    card against the CPU within 4 sigma, and the cloud-camera images
    against the CPU's within 1e-5 of their largest value.
-8. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
+8. The sharding layer (``rte_rrtmgp_torch/parallel``): the flagship step
+   on a (4,) cols mesh and a (2, 2) cols x gpt mesh, each listing the card
+   4 times, and ``RadiationSolverLW/SW.solve(mesh=)`` on the (4,) mesh,
+   each within ``STEP_TOL_WM2`` of the unsharded run with its exact launch
+   counts summed over the shards, ms/step beside the unsharded step's; a
+   one-process NCCL group; two processes of ``tools/multihost_smoke.py``
+   sharing the card over gloo, the gpt axis across them, their means
+   against each other and the one-process run; the gradient guard (a
+   float32 input requiring grad raises; float64 on the card differentiates
+   as on the CPU).
+9. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
    that runs it in phase 4), then the last line ``{"ok": true, "device":
    {...}}``.
 """
@@ -125,6 +135,10 @@ BW_CLI_CAM, BW_CLI_PPP = 8, 1  # cli_bw / cli_rt_lite: TOA camera px a side, ppp
 BW_SEEDS = 12                  # card vs CPU: seeds on each side
 BW_MEANS_TOL = {"fifo": 0.05, "field": 0.08}   # tests/test_raytracer_bw.py
 N_ROUNDS, N_STEPS = 3, 5       # step timing
+MESH_PROC_COLS = 1024          # columns a process of the two-process run
+MESH_PROC_TIMEOUT = 300        # seconds for the two processes
+MESH_MEAN_RTOL = 1e-5          # float32 flux means, sums in another order
+GRAD_NCOL, GRAD_RTOL = 16, 1e-10   # float64 gradient, card vs CPU
 SIGMA = 5.670374419e-8
 LAYOUTS = {"default": dict(cellw=True, layer_major=False),
            "cellw_off": dict(cellw=False, layer_major=False),
@@ -1044,6 +1058,224 @@ def bw_phase(dev, card, record, replay):
              f"= {4 * sigma}")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def flux_means(out) -> tuple:
+    """Means of lw_flux_up and sw_flux_dn, summed in float64 (as
+    ``tools/multihost_smoke.py`` takes them)."""
+    return tuple(float(out[k].double().mean())
+                 for k in ("lw_flux_up", "sw_flux_dn"))
+
+
+def mesh_phase(dev, card, tables, args):
+    """Phase 8: the sharding layer (``rte_rrtmgp_torch/parallel``) on the
+    card.  The flagship step on a (4,) cols mesh and a (2, 2) cols x gpt
+    mesh, each listing the card 4 times, and ``RadiationSolverLW/SW.solve(
+    mesh=)`` on the (4,) mesh: each within ``STEP_TOL_WM2`` of the
+    unsharded run, with its exact launch counts summed over the shards
+    (each shard's counted from its own g-slice), ms/step beside the
+    unsharded step's.  Then a one-process NCCL group (``initialize``, the
+    sharded step, an all-reduce), two processes of
+    ``tools/multihost_smoke.py`` sharing the card over gloo with the gpt
+    axis across them (``MESH_PROC_COLS`` columns each), their ``RESULT``
+    means within ``MESH_MEAN_RTOL`` of each other and of the one-process
+    run, and the gradient guard: a float32 step whose input requires grad
+    raises, the float64 step's gradient on the card equals the CPU's
+    within ``GRAD_RTOL``."""
+    import numpy as np
+    import torch
+
+    from rte_rrtmgp_torch import step
+    from rte_rrtmgp_torch.cases.profiles import make_atmosphere
+    from rte_rrtmgp_torch.models import RadiationSolverLW, RadiationSolverSW
+    from rte_rrtmgp_torch.ops import kernels
+    from rte_rrtmgp_torch.parallel import distributed as dist
+    from rte_rrtmgp_torch.parallel import make_mesh, shard_kdist
+    from rte_rrtmgp_torch.parallel.sharded import sharded_step
+
+    tag = "[mesh]"
+    t_phase = time.perf_counter()
+    kd_lw, kd_sw, cl_lw, cl_sw = tables
+    layout = LAYOUTS["default"]
+
+    def launches_of(fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    def held(what, out, ref, got, want):
+        worst = max(float((out[k] - ref[k]).abs().max()) for k in ref)
+        print(f"{tag} {what}: max |diff| vs unsharded {worst:.3e} W m-2 "
+              f"(limit {STEP_TOL_WM2}); launches {got} (expected {want})")
+        if set(out) != set(ref) or worst > STEP_TOL_WM2:
+            fail(f"{what}: {worst:.3e} W m-2 from the unsharded run")
+        if got != want:
+            fail(f"{what}: launches {got} != {want}")
+
+    one = step.make_step(*tables, gpt_chunk=GPT_CHUNK, **layout)
+    ref, _ = launches_of(lambda: one(*args))
+    runs = {"unsharded": one}
+    for shape in ((4,), (2, 2)):
+        mesh = make_mesh(shape, devices=[dev] * 4)
+        run = sharded_step(mesh, *tables, gpt_chunk=GPT_CHUNK, **layout)
+        want = {}
+        slices = zip(shard_kdist(kd_lw, mesh).local(),
+                     shard_kdist(kd_sw, mesh).local())
+        for (_, kl), (_, ks) in slices:
+            shard = expected_launches(kl, ks, GPT_CHUNK)["default"]
+            for k, v in shard.items():
+                want[k] = want.get(k, 0) + v
+        out, got = launches_of(lambda: run(*args))
+        held(f"sharded_step {shape} mesh, card x4", out, ref, got, want)
+        runs[f"mesh {shape}"] = run
+    ms = {name: [] for name in runs}
+    for _ in range(N_ROUNDS):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(N_STEPS):
+                run(*args)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / N_STEPS * 1e3)
+    for name, v in ms.items():
+        print(f"{tag} {name}: {sorted(v)[len(v) // 2]:.3f} ms/step (median "
+              f"of {N_ROUNDS} rounds of {N_STEPS} steps, in turns; rounds "
+              f"{', '.join(f'{x:.3f}' for x in v)}); card {card}")
+
+    # ---- solve(mesh=) on the (4,) mesh ----
+    mesh4 = make_mesh((4,), devices=[dev] * 4)
+    atm = make_atmosphere(NCOL, NLAY, seed=0)
+    common = dict(gas_concs=atm["gas_concs"], p_lay=atm["p_lay"],
+                  p_lev=atm["p_lev"], t_lay=atm["t_lay"], lwp=atm["lwp"],
+                  iwp=atm["iwp"], rel=atm["rel"], dei=atm["dei"],
+                  gpt_chunk=GPT_CHUNK, **layout)
+    n_lw = expected_launches(kd_lw, kd_sw, GPT_CHUNK)["default"]["lw_sweep"]
+    n_sw = expected_launches(kd_lw, kd_sw, GPT_CHUNK)["default"]["sw_2stream"]
+    lw, sw = RadiationSolverLW(kd_lw, cl_lw), RadiationSolverSW(kd_sw, cl_sw)
+    alb = np.full((NCOL, kd_sw.nbnd), 0.06)
+    solves = {
+        "LW": (lambda **kw: lw.solve(t_lev=atm["t_lev"], t_sfc=atm["t_sfc"],
+                                     emis_sfc=np.full((NCOL, kd_lw.nbnd),
+                                                      0.98), **common, **kw),
+               {"gas_optics_interp": 4 * n_lw, "lw_sweep": 4 * n_lw}),
+        "SW": (lambda **kw: sw.solve(mu0=atm["mu0"], sfc_alb_dir=alb,
+                                     sfc_alb_dif=alb, delta_cloud=True,
+                                     **common, **kw),
+               {"gas_optics_interp": 4 * n_sw, "sw_2stream": 4 * n_sw})}
+    for band, (solve, want) in solves.items():
+        base, _ = launches_of(solve)
+        out, got = launches_of(lambda: solve(mesh=mesh4))
+        held(f"RadiationSolver{band}.solve(mesh=(4,) mesh)", out, base, got,
+             want)
+        t_one = cuda_ms(solve, warmup=1, iters=3)
+        t_mesh = cuda_ms(lambda: solve(mesh=mesh4), warmup=1, iters=3)
+        print(f"{tag} {band} solve: {t_one:.3f} ms unsharded, {t_mesh:.3f} "
+              f"ms on the (4,) mesh (host input preparation included); "
+              f"card {card}")
+    del runs, mesh4, solves
+
+    # ---- a one-process NCCL group ----
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    gdev = dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    if dist._STATE["backend"] != "nccl":
+        fail(f"one process on its own card chose {dist._STATE['backend']}")
+    gmesh = dist.make_global_mesh()
+    arrs = step.atmos_arrays(NCOL, NLAY, seed=0)
+    local = tuple(arrs[k] for k in step.ARG_NAMES)
+    gout = sharded_step(gmesh, *tables, gpt_chunk=GPT_CHUNK, **layout)(
+        dist.host_shard_columns(gmesh, local))
+    sums = torch.stack([gout["lw_flux_up"].double().sum(),
+                        gout["sw_flux_dn"].double().sum()])
+    torch.distributed.all_reduce(sums)
+    torch.cuda.synchronize()
+    one_proc = tuple((sums / gout["lw_flux_up"].numel()).tolist())
+    dist.shutdown()
+    held_means = flux_means(ref)
+    print(f"{tag} NCCL group of one process on {gdev}: means lw_flux_up, "
+          f"sw_flux_dn {one_proc} (unsharded {held_means}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not np.allclose(one_proc, held_means, rtol=MESH_MEAN_RTOL, atol=0):
+        fail(f"NCCL one-process means {one_proc} vs {held_means}")
+
+    # ---- two processes sharing the card over gloo, gpt across them ----
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m", "rte_rrtmgp_torch.tools.multihost_smoke",
+           "--device", f"cuda:{dev.index or 0}", "--backend", "gloo",
+           "--gpt-shards", "2", "--ncol-per-process", str(MESH_PROC_COLS),
+           "--nlay", str(NLAY), "--gpt-per-band", str(GPT_PER_BAND),
+           "--gpt-chunk", str(GPT_CHUNK), "--coordinator",
+           f"127.0.0.1:{port}", "--num-processes", "2"]
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i)], cwd=root,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=MESH_PROC_TIMEOUT) for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"multihost_smoke did not finish in {MESH_PROC_TIMEOUT} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    results = {}
+    for p, (so, se) in zip(procs, outs):
+        if p.returncode != 0:
+            fail(f"multihost_smoke exited {p.returncode}: {se[-2000:]}")
+        for line in so.splitlines():
+            print(f"{tag} multihost_smoke: {line}")
+            if line.startswith("RESULT"):
+                _, pid, a, b = line.split()
+                results[int(pid)] = (float(a), float(b))
+    if set(results) != {0, 1}:
+        fail(f"multihost_smoke printed RESULT lines for {sorted(results)}")
+    print(f"{tag} two gloo processes on the card, gpt across them: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for pid, got in results.items():
+        if not np.allclose(got, one_proc, rtol=MESH_MEAN_RTOL, atol=0):
+            fail(f"process {pid} means {got} vs one process {one_proc}")
+
+    # ---- the gradient guard ----
+    small = step.atmos_arrays(GRAD_NCOL, NLAY, dtype=np.float32)
+    t32 = [torch.as_tensor(small[k], device=dev) for k in step.ARG_NAMES]
+    t32[4].requires_grad_()
+    try:
+        one(*t32)
+        fail("a float32 step whose t_sfc requires grad did not raise")
+    except RuntimeError as e:
+        print(f"{tag} float32 step with t_sfc requiring grad raised: {e}")
+    small = step.atmos_arrays(GRAD_NCOL, NLAY, dtype=np.float64)
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        tabs = step.build_tables(GPT_PER_BAND, dtype=torch.float64,
+                                 device=where)
+        a = [torch.as_tensor(small[k], device=where) for k in step.ARG_NAMES]
+        a[4].requires_grad_()
+        a[11].requires_grad_()
+        out = step.make_step(*tabs, gpt_chunk=GPT_CHUNK, **layout)(*a)
+        loss = out["lw_flux_up"][:, -1].sum() + out["sw_flux_dn"][:, 0].sum()
+        grads.append([g.cpu() for g in
+                      torch.autograd.grad(loss, (a[4], a[11]))])
+    for name, gc, gh in zip(("t_sfc", "mu0"), *grads):
+        rel = float((gc - gh).abs().max() / gh.abs().max())
+        print(f"{tag} float64 gradient d(TOA LW up + sfc SW down)/d {name} "
+              f"on the card vs the CPU ({GRAD_NCOL}x{NLAY}): max rel diff "
+              f"{rel:.3e} (limit {GRAD_RTOL:g})")
+        if not (bool(torch.isfinite(gc).all()) and rel <= GRAD_RTOL):
+            fail(f"float64 gradient wrt {name}: {rel:.3e} from the CPU's")
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def inputs_field(path, name, nlay, ncol):
     """An (ncol, nlay) field of a case input file (``cli._read_field``)."""
     from rte_rrtmgp_torch.cli import _read_field
@@ -1463,7 +1695,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     bw_phase(dev, card, record, replay)
 
-    # ---- 8. result lines ----
+    # ---- 8. the sharding layer ----
+    torch.cuda.empty_cache()
+    mesh_phase(dev, card, tables, args)
+
+    # ---- 9. result lines ----
     rows = []
     for name, meta in KERNEL_INFO.items():
         layout = meta["layout"]

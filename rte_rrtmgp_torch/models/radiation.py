@@ -376,7 +376,7 @@ class RadiationSolverLW(_SolverBase):
               n_gauss_angles: int = 1, output_optical: bool = False,
               with_fluxes: bool = True, check_inputs: bool = True,
               cellw: Optional[bool] = None,
-              layer_major: Optional[bool] = None) -> dict:
+              layer_major: Optional[bool] = None, mesh=None) -> dict:
         """emis_sfc: (ncol, nbnd) surface emissivity per band.  Runs on the
         k-distribution's device.
 
@@ -384,7 +384,12 @@ class RadiationSolverLW(_SolverBase):
         cloudy-sky path when provided.  ``with_fluxes=False`` skips the
         solve (optical output only); ``check_inputs=False`` skips the range
         checks.  ``cellw`` / ``layer_major`` choose the layout (module
-        docstring; ``None``: environment, tuned winner, default)."""
+        docstring; ``None``: environment, tuned winner, default).
+
+        ``mesh``: a cols-only ``parallel.Mesh`` runs the whole single-device
+        pipeline, kernels included, on each column slab under its device
+        and concatenates the outputs on the mesh's first device
+        (``parallel/sharded.py``); a mesh with a ``gpt`` axis is refused."""
         dtype = self.kdist.dtype
         if check_inputs:
             self._validate(p_lay, p_lev, t_lay, t_lev, t_sfc, col_dry)
@@ -396,19 +401,26 @@ class RadiationSolverLW(_SolverBase):
         col_dry = self._col_dry(gas_concs, p_lev, col_dry, dtype)
         zeros = torch.zeros_like(p_lay)
         cast = lambda a: self._tensor(a, dtype)
-        return _solve_lw_impl(
+        args = (
             self.kdist, self.cloud_lut,
             p_lay, p_lev, cast(t_lay), cast(t_lev), cast(t_sfc),
             vmr, col_dry, cast(emis_sfc),
             cast(lwp) if with_clouds else zeros,
             cast(iwp) if with_clouds else zeros,
             cast(rel) if with_clouds else zeros,
-            cast(dei) if with_clouds else zeros,
+            cast(dei) if with_clouds else zeros)
+        statics = dict(
             top_at_1=top_at_1, gpt_chunk=gpt_chunk,
             output_bnd_fluxes=output_bnd_fluxes,
             n_gauss_angles=n_gauss_angles, with_clouds=with_clouds,
             output_optical=output_optical, with_fluxes=with_fluxes,
             cellw=cellw, layer_major=layer_major)
+        if mesh is not None:
+            from ..parallel.sharded import sharded_columns_call
+
+            return sharded_columns_call(mesh, _solve_lw_impl, 2, args,
+                                        statics)
+        return _solve_lw_impl(*args, **statics)
 
 
 class RadiationSolverSW(_SolverBase):
@@ -422,12 +434,14 @@ class RadiationSolverSW(_SolverBase):
               delta_cloud: bool = False, delta_aerosol: bool = False,
               output_optical: bool = False, with_fluxes: bool = True,
               check_inputs: bool = True, cellw: Optional[bool] = None,
-              layer_major: Optional[bool] = None) -> dict:
+              layer_major: Optional[bool] = None, mesh=None) -> dict:
         """sfc_alb_*: (ncol, nbnd); mu0: (ncol,); aermr: (ncol, nlay, 11).
         Runs on the k-distribution's device.  ``with_fluxes`` and
         ``check_inputs`` as in :meth:`RadiationSolverLW.solve`; ``cellw`` /
         ``layer_major`` choose the layout (module docstring; ``None``:
-        environment, tuned winner, default)."""
+        environment, tuned winner, default); ``mesh``: a cols-only mesh
+        runs the solve on each column slab (see
+        :meth:`RadiationSolverLW.solve`)."""
         dtype = self.kdist.dtype
         if check_inputs:
             self._validate(p_lay, p_lev, t_lay, col_dry=col_dry)
@@ -444,7 +458,7 @@ class RadiationSolverSW(_SolverBase):
         if tsi_scaling is None:
             tsi_scaling = torch.ones((ncol,), dtype=dtype, device=p_lay.device)
         cast = lambda a: self._tensor(a, dtype)
-        return _solve_sw_impl(
+        args = (
             self.kdist, self.cloud_lut, self.aerosol_lut,
             p_lay, p_lev, cast(t_lay), vmr, col_dry,
             cast(sfc_alb_dir), cast(sfc_alb_dif), cast(tsi_scaling), cast(mu0),
@@ -453,10 +467,17 @@ class RadiationSolverSW(_SolverBase):
             cast(rel) if with_clouds else zeros,
             cast(dei) if with_clouds else zeros,
             cast(rh) if with_aerosols else zeros,
-            cast(aermr) if with_aerosols else zeros3,
+            cast(aermr) if with_aerosols else zeros3)
+        statics = dict(
             top_at_1=top_at_1, gpt_chunk=gpt_chunk,
             output_bnd_fluxes=output_bnd_fluxes,
             with_clouds=with_clouds, with_aerosols=with_aerosols,
             delta_cloud=delta_cloud, delta_aerosol=delta_aerosol,
             output_optical=output_optical, with_fluxes=with_fluxes,
             cellw=cellw, layer_major=layer_major)
+        if mesh is not None:
+            from ..parallel.sharded import sharded_columns_call
+
+            return sharded_columns_call(mesh, _solve_sw_impl, 3, args,
+                                        statics)
+        return _solve_sw_impl(*args, **statics)

@@ -73,3 +73,13 @@ def test_camera_modules_are_checked():
                 "tools/image_from_xyz.py", "tools/box_cloud.py",
                 "tools/bench_bw.py", "tuning/tune_bw.py"):
         assert "rte_rrtmgp_torch/" + mod in names, mod
+
+
+def test_parallel_modules_are_checked():
+    """The sharding layer and the multi-process tool are among the files
+    held to no JAX import above."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/sharded.py", "parallel/distributed.py",
+                "tools/multihost_smoke.py"):
+        assert "rte_rrtmgp_torch/" + mod in names, mod

@@ -24,7 +24,7 @@ from rte_rrtmgp_torch.ops.kernels import gas_optics_interp as b1
 from rte_rrtmgp_torch.ops.kernels import interp_rows as b45
 from rte_rrtmgp_torch.ops.kernels import solvers as b23
 from rte_rrtmgp_torch.ops import gas_optics as go, rte_lw, rte_sw
-from rte_rrtmgp_torch import cli, cli_bw, cli_rt
+from rte_rrtmgp_torch import cli, cli_bw, cli_rt, step
 from rte_rrtmgp_torch.cases import inputs
 from rte_rrtmgp_torch.cases.profiles import make_atmosphere
 from rte_rrtmgp_torch.data import synthetic
@@ -389,6 +389,122 @@ def test_wrappers_take_twins_for_float64_on_card(cuda):
     with pytest.raises(ValueError):
         b23.lw_sweep(lw[0].float(), *[x.float().cpu() for x in lw[1:]],
                      D=1.66, w=1.0)
+
+
+def _b123_against_twins(dev):
+    """B1 (LW and SW), B2 and B3 launched on tensors on ``dev``, each held
+    to its twin; returns the launch counts."""
+    kernels.reset_launch_counts()
+    for longwave in (True, False):
+        kd, interp, play, tlay, col_gas, _ = _gas_case(dev, longwave)
+        sc = go.minor_scaling(kd, interp, play, tlay, col_gas)
+        got = b1.gas_optics_interp(kd, interp, sc, rayleigh=not longwave)
+        ref = go.majmin_plain(kd, interp, sc, rayleigh=not longwave)
+        for name, a, b in zip(("tau", "second"), got, ref):
+            assert a.device == dev
+            _assert_close(a, b, f"B1 {name} longwave={longwave}")
+    rng = np.random.default_rng(11)
+    lw = _lw_args(dev, rng, 9, 20, 96, False)
+    for name, a, b in zip(("up", "dn", "jac"),
+                          b23.lw_sweep(*lw, D=1.66, w=1.0),
+                          rte_lw.lw_sweep_plain(*lw, 1.66, 1.0)):
+        assert a.device == dev
+        _assert_close(a, b, f"B2 {name}")
+    sw = _sw_args(dev, rng, 9, 20, 96, False)
+    for name, a, b in zip(("up", "dn", "dir"), b23.sw_2stream(*sw),
+                          rte_sw.sw_2stream_plain(*sw)):
+        assert a.device == dev
+        _assert_close(a, b, f"B3 {name}")
+    torch.cuda.synchronize(dev)
+    return kernels.launch_counts()
+
+
+@pytest.fixture(scope="module")
+def second_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_their_tensors_device(second_card):
+    """B1-B3 on tensors on cuda:1 while cuda:0 is the current device."""
+    with torch.cuda.device(0):
+        counts = _b123_against_twins(second_card)
+        assert torch.cuda.current_device() == 0
+    assert counts["gas_optics_interp"] == 2
+    assert counts["lw_sweep"] == counts["sw_2stream"] == 1
+
+
+def test_float32_input_requiring_grad_raises(cuda):
+    """The kernels have no backward: a float32 CUDA input that requires
+    grad raises while grad mode is on, and runs under no_grad."""
+    rng = np.random.default_rng(3)
+    lw = _lw_args(cuda, rng, 5, 7, 12, False)
+    sw = _sw_args(cuda, rng, 5, 7, 12, False)
+    lw[4].requires_grad_()
+    sw[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="lw_sweep.*no backward"):
+        b23.lw_sweep(*lw, D=1.66, w=1.0)
+    with pytest.raises(RuntimeError, match="sw_2stream.*no backward"):
+        b23.sw_2stream(*sw)
+    with torch.no_grad():
+        b23.lw_sweep(*lw, D=1.66, w=1.0)
+        b23.sw_2stream(*sw)
+    kd, interp, play, tlay, col_gas, _ = _gas_case(cuda, True)
+    sc = go.minor_scaling(kd, interp, play, tlay, col_gas).requires_grad_()
+    with pytest.raises(RuntimeError, match="gas_optics_interp"):
+        b1.gas_optics_interp(kd, interp, sc, rayleigh=False)
+    rows, jes, fms, fp, cms = go._fused_inputs(kd, interp, True)
+    fms = [f.clone().requires_grad_() for f in fms]
+    with pytest.raises(RuntimeError, match="interp_rows"):
+        b45.interp_rows(kd.kmajor_rows, rows, jes, fms, fp, cms)
+    # the flagship step: t_sfc reaches the LW sweep's surface source
+    tables = step.build_tables(2, dtype=torch.float32, device=cuda)
+    arrs = step.atmos_arrays(8, 20)
+    args = [torch.as_tensor(arrs[k], device=cuda) for k in step.ARG_NAMES]
+    args[4].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        step.make_step(*tables)(*args)
+
+
+def test_float64_gradient_on_card_matches_cpu(cuda):
+    """float64 takes the twins on the card and differentiates: d(TOA LW up
+    + surface SW down)/d(t_sfc, mu0) of the step equals the CPU's within
+    1e-10 relative."""
+    arrs = step.atmos_arrays(8, 20, dtype=np.float64)
+    grads = {}
+    for dev in ("cpu", cuda):
+        tables = step.build_tables(2, dtype=torch.float64, device=dev)
+        args = [torch.as_tensor(arrs[k], device=dev) for k in step.ARG_NAMES]
+        t_sfc, mu0 = args[4].requires_grad_(), args[11].requires_grad_()
+        kernels.reset_launch_counts()
+        out = step.make_step(*tables)(*args)
+        loss = out["lw_flux_up"][:, -1].sum() + out["sw_flux_dn"][:, 0].sum()
+        grads[str(dev)] = [g.cpu() for g in
+                           torch.autograd.grad(loss, (t_sfc, mu0))]
+        assert not any(kernels.launch_counts().values())
+    for g_card, g_cpu in zip(grads[str(cuda)], grads["cpu"]):
+        assert torch.isfinite(g_cpu).all() and g_cpu.abs().max() > 0
+        torch.testing.assert_close(g_card, g_cpu, rtol=1e-10, atol=0)
+
+
+def test_sharded_step_on_card_matches_unsharded(cuda):
+    """The step on a (2, 2) cols x gpt mesh listing the card 4 times, and
+    solve(mesh=) on a (4,) mesh, against the unsharded step."""
+    from rte_rrtmgp_torch.parallel import make_mesh
+    from rte_rrtmgp_torch.parallel.sharded import sharded_step
+    tables = step.build_tables(4, dtype=torch.float32, device=cuda)
+    arrs = step.atmos_arrays(64, 30)
+    args = [torch.as_tensor(arrs[k], device=cuda) for k in step.ARG_NAMES]
+    ref = step.make_step(*tables, gpt_chunk=32)(*args)
+    kernels.reset_launch_counts()
+    out = sharded_step(make_mesh((2, 2), devices=[cuda] * 4), *tables,
+                       gpt_chunk=32)(*args)
+    # per shard: LW 32 g (1 chunk), SW 28 g (1 chunk); 4 shards
+    assert kernels.launch_counts()["gas_optics_interp"] == 8
+    assert kernels.launch_counts()["lw_sweep"] == 4
+    for k, v in ref.items():
+        assert float((out[k] - v).abs().max()) <= 1e-2, k
 
 
 def test_golden_case_float64_on_card(cuda):

@@ -144,16 +144,16 @@ def make_global_mesh(shape: Optional[Sequence[int]] = None,
     it makes the ``torch.distributed`` groups of the mesh's lines."""
     n, rank = process_count(), process_index()
     shape = (n,) if shape is None else tuple(int(s) for s in shape)
-    axis_names = tuple(axis_names)[:len(shape)]
     if int(np.prod(shape)) != n:
         raise ValueError(f"a {shape} mesh needs {int(np.prod(shape))} "
                          f"processes, there are {n}")
     ranks = np.arange(n).reshape(shape)
     devices = np.empty(n, dtype=object)
     devices[rank] = local_device()
-    mesh = Mesh(devices.reshape(shape), axis_names, ranks=ranks, rank=rank)
+    mesh = Mesh(devices.reshape(shape), tuple(axis_names)[:len(shape)],
+                ranks=ranks, rank=rank)
     if n > 1:
-        for ax, name in enumerate(axis_names):
+        for ax, name in enumerate(mesh.axis_names):
             lines = np.moveaxis(ranks, ax, -1).reshape(-1, shape[ax])
             for line in lines:
                 if len(line) < 2:

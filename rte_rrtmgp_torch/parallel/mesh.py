@@ -53,6 +53,13 @@ class Mesh:
     groups: dict = dataclasses.field(default_factory=dict)
     copies: dict = dataclasses.field(default_factory=dict, repr=False)
 
+    def __post_init__(self):
+        names = tuple(self.axis_names)
+        if (len(names) != self.devices.ndim or len(set(names)) != len(names)
+                or not set(names) <= set(AXES)):
+            raise ValueError(f"a {self.devices.shape} mesh needs as many "
+                             f"distinct axis names from {AXES}, got {names}")
+
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.devices.shape))
@@ -64,13 +71,8 @@ class Mesh:
     def grid(self, arr: Optional[np.ndarray] = None) -> np.ndarray:
         """``arr`` (default: the devices) as a (cols, gpt) array."""
         arr = self.devices if arr is None else arr
-        names = list(self.axis_names)
-        other = [a for a in names if a not in AXES]
-        if any(self.shape[a] != 1 for a in other):
-            raise ValueError(f"mesh axes {other} must have size 1; the port "
-                             f"shards only {AXES}")
-        order = [names.index(a) for a in AXES if a in names] + \
-            [names.index(a) for a in other]
+        order = [self.axis_names.index(a) for a in AXES
+                 if a in self.axis_names]
         return np.transpose(arr, order).reshape(self.size("cols"),
                                                 self.size("gpt"))
 
@@ -121,20 +123,15 @@ def tree_map(fn, tree):
     return tree
 
 
-def to_device(tree, device: torch.device):
-    """Every tensor of ``tree`` on ``device`` (ndarrays become tensors)."""
-    return tree_map(lambda a: torch.as_tensor(a).to(device), tree)
-
-
 def make_mesh(shape: Optional[Sequence[int]] = None,
               axis_names: Sequence[str] = AXES, devices=None) -> Mesh:
     """A mesh over ``devices`` (default: every CUDA device; raises where
     there is no card, as ``config.resolve_device`` does).  ``shape=None``
     puts all devices on the ``cols`` axis (the zero-communication axis);
     ``shape=(a, b)`` takes the first a*b devices onto ("cols", "gpt"); a
-    shorter shape takes the leading axis names.  A
-    device may be listed more than once (``devices=["cuda:0"] * 4``, or
-    ``["cpu"] * 8`` on the CPU): each listing is one shard."""
+    shorter shape takes the leading axis names.  A device may be listed
+    more than once (``devices=["cuda:0"] * 4``, or ``["cpu"] * 8`` on the
+    CPU): each listing is one shard."""
     if devices is None:
         config.resolve_device("cuda")
         devices = [torch.device("cuda", i)
@@ -143,10 +140,6 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     if shape is None:
         shape = (len(devices),)
     shape = tuple(int(n) for n in shape)
-    axis_names = tuple(axis_names)[:len(shape)]
-    if len(set(axis_names)) != len(shape):
-        raise ValueError(f"mesh shape {shape} needs as many distinct axis "
-                         f"names, got {axis_names}")
     n = int(np.prod(shape))
     if n > len(devices):
         raise ValueError(f"a {shape} mesh needs {n} devices, got "
@@ -154,7 +147,7 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     arr = np.empty(n, dtype=object)
     for i, d in enumerate(devices[:n]):
         arr[i] = d
-    return Mesh(arr.reshape(shape), axis_names)
+    return Mesh(arr.reshape(shape), tuple(axis_names)[:len(shape)])
 
 
 def column_spec(mesh: Mesh, ndim: int) -> tuple:
@@ -185,10 +178,8 @@ def _cached(mesh: Mesh, obj, tag, device, make):
 def replicate(mesh: Mesh, tree) -> Placed:
     """``tree`` whole at every position, one copy a device (cached on the
     mesh: placing the same tables again copies nothing)."""
-    def put(dev):
-        return tree_map(lambda a: _cached(
-            mesh, a, None, dev, lambda: torch.as_tensor(a).to(dev)), tree)
-    return _placed(mesh, lambda pos, dev: put(dev))
+    return _placed(mesh, lambda pos, dev: tree_map(lambda a: _cached(
+        mesh, a, None, dev, lambda: torch.as_tensor(a).to(dev)), tree))
 
 
 def shard_atmosphere(mesh: Mesh, tree) -> Placed:
@@ -231,6 +222,6 @@ def shard_kdist(kd, mesh: Mesh) -> Placed:
 
     def part(pos, dev):
         g0, g1 = gpt_bounds(kd.ngpt, n, pos[1])
-        return _cached(mesh, kd, (g0, g1), dev,
-                       lambda: to_device(kd.slice_gpt(g0, g1), dev))
+        return _cached(mesh, kd, (g0, g1), dev, lambda: tree_map(
+            lambda a: a.to(dev), kd.slice_gpt(g0, g1)))
     return _placed(mesh, part)

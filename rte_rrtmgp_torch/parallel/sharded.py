@@ -33,13 +33,9 @@ import torch
 
 from .mesh import Mesh, Placed, replicate, shard_atmosphere, shard_kdist
 
-GPT_REFUSAL = ("sharded_columns_call needs a cols-only mesh; shard the gpt "
-               "axis via sharded_step instead")
-
-
 def cols_only(mesh: Mesh) -> bool:
     """True when the mesh shards nothing but the column axis."""
-    return all(ax == "cols" or n == 1 for ax, n in mesh.shape.items())
+    return mesh.size("gpt") == 1
 
 
 def on_device(device: torch.device):
@@ -63,20 +59,16 @@ def sharded_columns_call(mesh: Mesh, impl, n_replicated: int, args,
 
     The first ``n_replicated`` positional args (tables, LUTs) replicate
     (copied once a device, cached on the mesh); every later arg splits on
-    its leading (column) axis.  The outputs are column-leading and come
-    back concatenated on the mesh's first device."""
+    its leading (column) axis, which must divide over ``cols``.  The
+    outputs are column-leading and come back concatenated on the mesh's
+    first device."""
     if not cols_only(mesh):
-        raise ValueError(GPT_REFUSAL)
+        raise ValueError("sharded_columns_call needs a cols-only mesh; "
+                         "shard the gpt axis via sharded_step instead")
     if mesh.ranks is not None and mesh.ranks.size > 1:
         raise ValueError("sharded_columns_call takes a mesh of this "
                          "process's devices; across processes use "
                          "sharded_step")
-    nsh = mesh.size("cols")
-    ncol = args[n_replicated].shape[0]
-    if ncol % nsh:
-        raise ValueError(
-            f"ncol={ncol} must divide over the {nsh}-way cols mesh axis "
-            f"(pad the columns or choose a different mesh)")
     reps = replicate(mesh, tuple(args[:n_replicated]))
     cols = shard_atmosphere(mesh, tuple(args[n_replicated:]))
     per_col = {}

@@ -9,8 +9,12 @@ not use).  Tolerance: 1e-5 of each output's largest magnitude, for float32
 sums over g taken in another order than the twin's.  Also on the card:
 float64 through the twins (the golden case within its 5.8e-2 W m-2 gate,
 no launch), the forward and camera tracers against the CPU (statistical),
-``cli_rt`` and ``cli_bw`` with their gas-optics launch counts, and the
-camera solver in float64 through the twins (no launch)."""
+``cli_rt`` and ``cli_bw`` with their gas-optics launch counts, the
+camera solver in float64 through the twins (no launch), the gradient guard
+(a float32 input that requires grad raises; float64 differentiates as on
+the CPU), B1-B3 launched on ``cuda:1`` while ``cuda:0`` is current (skipped
+with fewer than two cards), and the step sharded on a mesh that lists the
+card 4 times."""
 
 import json
 import os

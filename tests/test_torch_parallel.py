@@ -219,3 +219,5 @@ def test_make_mesh_without_devices_needs_a_card(monkeypatch):
         make_mesh()
     with pytest.raises(ValueError, match="needs 8 devices"):
         make_mesh((4, 2), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="axis names"):
+        make_mesh((4, 2), ("x", "y"), devices=CPU8)

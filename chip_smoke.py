@@ -1066,13 +1066,6 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def flux_means(out) -> tuple:
-    """Means of lw_flux_up and sw_flux_dn, summed in float64 (as
-    ``tools/multihost_smoke.py`` takes them)."""
-    return tuple(float(out[k].double().mean())
-                 for k in ("lw_flux_up", "sw_flux_dn"))
-
-
 def mesh_phase(dev, card, tables, args):
     """Phase 8: the sharding layer (``rte_rrtmgp_torch/parallel``) on the
     card.  The flagship step on a (4,) cols mesh and a (2, 2) cols x gpt
@@ -1084,7 +1077,8 @@ def mesh_phase(dev, card, tables, args):
     sharded step, an all-reduce), two processes of
     ``tools/multihost_smoke.py`` sharing the card over gloo with the gpt
     axis across them (``MESH_PROC_COLS`` columns each), their ``RESULT``
-    means within ``MESH_MEAN_RTOL`` of each other and of the one-process
+    numbers (flux means and column-order check) within ``MESH_MEAN_RTOL``
+    of each other and of the one-process
     run, and the gradient guard: a float32 step whose input requires grad
     raises, the float64 step's gradient on the card equals the CPU's
     within ``GRAD_RTOL``."""
@@ -1098,6 +1092,8 @@ def mesh_phase(dev, card, tables, args):
     from rte_rrtmgp_torch.parallel import distributed as dist
     from rte_rrtmgp_torch.parallel import make_mesh, shard_kdist
     from rte_rrtmgp_torch.parallel.sharded import sharded_step
+    from rte_rrtmgp_torch.tools.multihost_smoke import (result_values,
+                                                        slab_sums)
 
     tag = "[mesh]"
     t_phase = time.perf_counter()
@@ -1185,22 +1181,23 @@ def mesh_phase(dev, card, tables, args):
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     t0 = time.perf_counter()
     gdev = dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
-    if dist._STATE["backend"] != "nccl":
-        fail(f"one process on its own card chose {dist._STATE['backend']}")
+    if torch.distributed.get_backend() != "nccl":
+        fail("one process on its own card chose "
+             f"{torch.distributed.get_backend()}")
     gmesh = dist.make_global_mesh()
     arrs = step.atmos_arrays(NCOL, NLAY, seed=0)
     local = tuple(arrs[k] for k in step.ARG_NAMES)
     gout = sharded_step(gmesh, *tables, gpt_chunk=GPT_CHUNK, **layout)(
         dist.host_shard_columns(gmesh, local))
-    sums = torch.stack([gout["lw_flux_up"].double().sum(),
-                        gout["sw_flux_dn"].double().sum()])
+    sums = slab_sums(gout, 0)
     torch.distributed.all_reduce(sums)
     torch.cuda.synchronize()
-    one_proc = tuple((sums / gout["lw_flux_up"].numel()).tolist())
+    one_proc = tuple(result_values(sums, *gout["lw_flux_up"].shape))
     dist.shutdown()
-    held_means = flux_means(ref)
+    held_means = tuple(result_values(slab_sums(ref, 0),
+                                     *ref["lw_flux_up"].shape))
     print(f"{tag} NCCL group of one process on {gdev}: means lw_flux_up, "
-          f"sw_flux_dn {one_proc} (unsharded {held_means}), "
+          f"sw_flux_dn, order check {one_proc} (unsharded {held_means}), "
           f"{time.perf_counter() - t0:.1f} s")
     if not np.allclose(one_proc, held_means, rtol=MESH_MEAN_RTOL, atol=0):
         fail(f"NCCL one-process means {one_proc} vs {held_means}")
@@ -1211,7 +1208,7 @@ def mesh_phase(dev, card, tables, args):
     port = free_port()
     env = dict(os.environ, PYTHONPATH=root)
     cmd = [sys.executable, "-m", "rte_rrtmgp_torch.tools.multihost_smoke",
-           "--device", f"cuda:{dev.index or 0}", "--backend", "gloo",
+           "--device", f"cuda:{dev.index or 0}",
            "--gpt-shards", "2", "--ncol-per-process", str(MESH_PROC_COLS),
            "--nlay", str(NLAY), "--gpt-per-band", str(GPT_PER_BAND),
            "--gpt-chunk", str(GPT_CHUNK), "--coordinator",
@@ -1232,18 +1229,20 @@ def mesh_phase(dev, card, tables, args):
     for p, (so, se) in zip(procs, outs):
         if p.returncode != 0:
             fail(f"multihost_smoke exited {p.returncode}: {se[-2000:]}")
+        if "backend gloo" not in so:
+            fail("a process sharing the card did not choose gloo")
         for line in so.splitlines():
             print(f"{tag} multihost_smoke: {line}")
             if line.startswith("RESULT"):
-                _, pid, a, b = line.split()
-                results[int(pid)] = (float(a), float(b))
+                _, pid, *values = line.split()
+                results[int(pid)] = tuple(float(v) for v in values)
     if set(results) != {0, 1}:
         fail(f"multihost_smoke printed RESULT lines for {sorted(results)}")
     print(f"{tag} two gloo processes on the card, gpt across them: "
           f"{time.perf_counter() - t0:.1f} s")
     for pid, got in results.items():
         if not np.allclose(got, one_proc, rtol=MESH_MEAN_RTOL, atol=0):
-            fail(f"process {pid} means {got} vs one process {one_proc}")
+            fail(f"process {pid} numbers {got} vs one process {one_proc}")
 
     # ---- the gradient guard ----
     small = step.atmos_arrays(GRAD_NCOL, NLAY, dtype=np.float32)

@@ -16,7 +16,8 @@ gathered their column slabs into the group's slab.
 
 The transport: NCCL where each process has a card of its own, gloo on the
 CPU and where processes share a card (NCCL refuses two ranks on one
-device).  The tensors stay on their device either way: gloo all-reduces
+device).  The processes tell each other their cards before the group is
+made, so the choice holds on any number of hosts.  The tensors stay on their device either way: gloo all-reduces
 CUDA tensors itself, and the slabs it cannot all-gather from a card pass
 through the host.
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,11 +40,11 @@ import torch
 from .. import config
 from .mesh import Mesh, Placed, shard_atmosphere, tree_map
 
-_STATE = {"device": None, "backend": None}
+_STATE = {"device": None}
 TIMEOUT_S = 300   # a collective waiting longer than this fails the process
 
 
-def _local_device(device, num_processes: int, process_id: int):
+def _local_device(device, process_id: int):
     """The device this process drives: ``device`` as given, and a bare
     ``cuda`` as ``cuda:{local rank}`` (``LOCAL_RANK``, else the process id,
     modulo the cards present)."""
@@ -53,30 +55,38 @@ def _local_device(device, num_processes: int, process_id: int):
     return dev
 
 
-def default_backend(device, num_processes: int) -> str:
-    """``nccl`` where each process has a card of its own (one process, or
-    a bare ``cuda`` and no more processes than cards), else ``gloo``."""
-    dev = torch.device(device)
+def _card_id(dev: torch.device) -> str:
+    """Names the physical card ``dev`` is on (its UUID, else host and
+    index); "" on the CPU."""
     if dev.type != "cuda":
-        return "gloo"
-    if num_processes == 1 or (dev.index is None and
-                              num_processes <= torch.cuda.device_count()):
+        return ""
+    uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None)
+    return str(uuid) if uuid else f"{socket.gethostname()}/cuda:{dev.index}"
+
+
+def default_backend(cards: Sequence[str]) -> str:
+    """``nccl`` where each process has a card of its own (``cards``: every
+    process's :func:`_card_id`, all set and all different), else ``gloo``
+    (a process on the CPU, or processes sharing a card: NCCL refuses two
+    ranks on one device)."""
+    if all(cards) and len(set(cards)) == len(cards):
         return "nccl"
     return "gloo"
 
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, *, device="cuda",
-               backend: Optional[str] = None) -> torch.device:
+               process_id: Optional[int] = None, *,
+               device="cuda") -> torch.device:
     """Join the process group; returns this process's device.
 
     Arguments default to the ``RTE_RRTMGP_COORDINATOR`` / ``_NUM_PROCESSES``
     / ``_PROCESS_ID`` environment variables.  With no coordinator this is a
     single process and no group is made (as JAX runs one where no
-    coordinator can be detected).  Otherwise ``init_process_group`` with
-    ``tcp://<coordinator_address>``; ``backend=None`` chooses by
-    :func:`default_backend`, and the choice is printed."""
+    coordinator can be detected).  Otherwise the processes meet at the
+    TCP store on ``coordinator_address`` (process 0 serves it), tell each
+    other their cards, and ``init_process_group`` takes the backend of
+    :func:`default_backend` on what they told; the choice is printed."""
     env = os.environ
     coordinator_address = coordinator_address or env.get(
         "RTE_RRTMGP_COORDINATOR")
@@ -85,19 +95,23 @@ def initialize(coordinator_address: Optional[str] = None,
     if process_id is None and "RTE_RRTMGP_PROCESS_ID" in env:
         process_id = int(env["RTE_RRTMGP_PROCESS_ID"])
     if coordinator_address is None:
-        dev = _local_device(device, 1, 0)
-        _STATE.update(device=dev, backend=None)
-        return dev
+        _STATE["device"] = _local_device(device, 0)
+        return _STATE["device"]
     if num_processes is None or process_id is None:
         raise ValueError("a coordinator needs num_processes and process_id")
-    raw = torch.device(device)
-    dev = _local_device(raw, num_processes, process_id)
-    backend = backend or default_backend(raw, num_processes)
+    dev = _local_device(device, process_id)
+    host, port = coordinator_address.rsplit(":", 1)
+    timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    store = torch.distributed.TCPStore(host, int(port), num_processes,
+                                       is_master=process_id == 0,
+                                       timeout=timeout)
+    store.set(f"card/{process_id}", _card_id(dev))
+    backend = default_backend([store.get(f"card/{r}").decode()
+                               for r in range(num_processes)])
     torch.distributed.init_process_group(
-        backend, init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    _STATE.update(device=dev, backend=backend)
+        backend, store=store, world_size=num_processes, rank=process_id,
+        timeout=timeout)
+    _STATE["device"] = dev
     print(f"[distributed] process {process_id} of {num_processes}: backend "
           f"{backend}, device {dev}", flush=True)
     return dev
@@ -126,11 +140,11 @@ def shutdown() -> None:
     """Leave the process group (a barrier first, so no process leaves
     while another still reduces)."""
     if is_initialized():
-        dev = _STATE["device"]
-        nccl = _STATE["backend"] == "nccl" and dev.type == "cuda"
-        torch.distributed.barrier(device_ids=[dev.index] if nccl else None)
+        nccl = torch.distributed.get_backend() == "nccl"
+        torch.distributed.barrier(
+            device_ids=[_STATE["device"].index] if nccl else None)
         torch.distributed.destroy_process_group()
-    _STATE.update(device=None, backend=None)
+    _STATE["device"] = None
 
 
 def make_global_mesh(shape: Optional[Sequence[int]] = None,
@@ -167,7 +181,7 @@ def make_global_mesh(shape: Optional[Sequence[int]] = None,
 def _all_gather_cols(a: torch.Tensor, group, size: int) -> torch.Tensor:
     """The slabs of a group's processes, concatenated in rank order (through
     the host under gloo, which cannot all-gather CUDA tensors)."""
-    host = _STATE["backend"] != "nccl"
+    host = torch.distributed.get_backend(group) != "nccl"
     t = (a.cpu() if host else a).contiguous()
     parts = [torch.empty_like(t) for _ in range(size)]
     torch.distributed.all_gather(parts, t, group=group)

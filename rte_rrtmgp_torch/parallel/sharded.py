@@ -15,11 +15,13 @@ with ``__graft_entry__.dryrun_multichip``), split by hand:
   the output device in one process, ``torch.distributed.all_reduce`` over
   the ``gpt`` group across processes), then concatenated over ``cols``.
 
-One difference from JAX: JAX turns its Pallas kernels off on a
-multi-device mesh (``config.py:145-163``), because XLA's partitioner
-cannot split a custom call.  The port splits by hand, so the CUDA kernels
-run on every shard; a shard's launch count comes from its own column
-slab and g-slice (its chunks are counted from its own ``ngpt``).
+Kernels: :func:`sharded_columns_call` matches JAX's ``shard_map`` path,
+which turns its Pallas kernels back on inside each shard.  The g-sharded
+step differs: JAX's annotation path turns Pallas off on a multi-device
+mesh (``config.py:145-163``), because XLA's partitioner cannot split a
+custom call, where the port splits by hand and runs the CUDA kernels on
+every shard.  A shard's launch count comes from its own column slab and
+g-slice (its chunks are counted from its own ``ngpt``).
 
 A g-split sums the g-points in another order, so float32 fluxes agree with
 the unsharded step to rounding, not bit for bit.

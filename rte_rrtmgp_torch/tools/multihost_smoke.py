@@ -10,15 +10,18 @@ process runs this same program, e.g. two processes on the CPU:
 
 or two processes sharing one card, the ``gpt`` axis across them:
 
-    ... --device cuda:0 --backend gloo --gpt-shards 2 ...
+    ... --device cuda:0 --gpt-shards 2 ...
 
 Each process loads only its own column slab of the same seeded global
 atmosphere (``step.atmos_arrays``, ``--ncol-per-process`` columns a
 process), the processes form one (cols, gpt) mesh (``--gpt-shards``
 processes on ``gpt``), and ``parallel.sharded.sharded_step`` runs the step.
 The global means are reduced by all-reduce, and each process prints one
-line ``RESULT <process_id> <lw_flux_up mean> <sw_flux_dn mean>`` (repr
-digits), the same in every process.  With no coordinator (and none in the
+line ``RESULT <process_id> <lw_flux_up mean> <sw_flux_dn mean> <order
+check>`` (repr digits), the same in every process.  The order check is the
+mean of ``lw_flux_up + sw_flux_dn`` with column i weighted by i + 1 (global
+column index): it moves when columns land in the wrong place, where the
+plain means do not.  With no coordinator (and none in the
 ``RTE_RRTMGP_*`` environment) it runs one process.
 """
 
@@ -41,13 +44,8 @@ def main(argv=None) -> int:
                    help="processes on the mesh's gpt axis")
     p.add_argument("--device", default="cuda",
                    help="cuda (cuda:<local rank>), cuda:N or cpu")
-    p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
-                   help="default: nccl where each process has a card of "
-                   "its own, else gloo")
     p.add_argument("--precision", default="float32",
                    choices=("float32", "float64"))
-    p.add_argument("--threads", type=int, default=None,
-                   help="torch.set_num_threads for the CPU")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -57,11 +55,8 @@ def main(argv=None) -> int:
     from ..parallel import distributed as dist
     from ..parallel.sharded import on_device, sharded_step
 
-    if args.threads:
-        torch.set_num_threads(args.threads)
     dev = dist.initialize(args.coordinator, args.num_processes,
-                          args.process_id, device=args.device,
-                          backend=args.backend)
+                          args.process_id, device=args.device)
     pid, nproc = dist.process_index(), dist.process_count()
     k = args.gpt_shards
     if nproc % k:
@@ -82,16 +77,36 @@ def main(argv=None) -> int:
 
     # This process's output is its cols slab; the processes of one gpt
     # group hold the same slab, so the global sums run over a cols group.
+    ((c, _), _), = mesh.local_positions()
     with on_device(dev):
-        sums = torch.stack([out["lw_flux_up"].double().sum(),
-                            out["sw_flux_dn"].double().sum()])
+        sums = slab_sums(out, c * out["lw_flux_up"].shape[0])
         group = mesh.groups.get("cols")
         if group is not None:
             torch.distributed.all_reduce(sums, group=group)
-    lw, sw = (sums / (ncol * (args.nlay + 1))).tolist()
+    values = result_values(sums, ncol, args.nlay + 1)
     dist.shutdown()
-    print(f"RESULT {pid} {lw!r} {sw!r}", flush=True)
+    print(f"RESULT {pid} " + " ".join(repr(v) for v in values), flush=True)
     return 0
+
+
+def slab_sums(out, col0: int):
+    """float64 sums over a slab of columns [col0, col0 + n): of
+    ``lw_flux_up``, of ``sw_flux_dn``, and of their sum with column i
+    weighted by i + 1."""
+    import torch
+
+    lw, sw = out["lw_flux_up"].double(), out["sw_flux_dn"].double()
+    w = torch.arange(col0 + 1, col0 + 1 + lw.shape[0], dtype=torch.float64,
+                     device=lw.device)
+    return torch.stack([lw.sum(), sw.sum(), (w[:, None] * (lw + sw)).sum()])
+
+
+def result_values(sums, ncol: int, nlev: int) -> list:
+    """The ``RESULT`` numbers from the global :func:`slab_sums`: the means
+    of ``lw_flux_up`` and ``sw_flux_dn``, and the order check."""
+    lw, sw, weighted = sums.tolist()
+    n = ncol * nlev
+    return [lw / n, sw / n, weighted / (n * (ncol + 1) / 2)]
 
 
 if __name__ == "__main__":

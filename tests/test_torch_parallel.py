@@ -10,7 +10,10 @@ JAX's size: 16 columns x 8 layers, 4 g-points a band.
 * placement: 8 slabs of 2 columns, the g-slices of ``shard_kdist``, tables
   copied once a mesh;
 * refusals: 10 columns over 8 shards, a ``gpt`` axis in ``solve(mesh=)``,
-  ``make_mesh()`` with no card.
+  ``make_mesh()`` with no card;
+* the transport ``distributed.initialize`` chooses from the cards its
+  processes report (NCCL only where each has one of its own, on any number
+  of hosts).
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ from rte_rrtmgp_tpu.parallel import make_mesh as jmake_mesh
 from rte_rrtmgp_torch import step
 from rte_rrtmgp_torch.cases.profiles import make_atmosphere
 from rte_rrtmgp_torch.models import RadiationSolverLW, RadiationSolverSW
+from rte_rrtmgp_torch.parallel import distributed as dist
 from rte_rrtmgp_torch.parallel import (column_spec, make_mesh, replicate,
                                        shard_atmosphere, shard_kdist)
 from rte_rrtmgp_torch.parallel.mesh import gpt_bounds
@@ -221,3 +225,25 @@ def test_make_mesh_without_devices_needs_a_card(monkeypatch):
         make_mesh((4, 2), devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="axis names"):
         make_mesh((4, 2), ("x", "y"), devices=CPU8)
+
+
+@pytest.mark.parametrize("cards, backend", [
+    ([f"GPU-{h}{i}" for h in "ab" for i in range(8)], "nccl"),  # 2 x 8 cards
+    (["GPU-a0"], "nccl"),
+    (["GPU-a0", "GPU-a0"], "gloo"),                             # one shared
+    ([f"GPU-a{i % 8}" for i in range(16)], "gloo"),             # 16 on 8
+    (["", ""], "gloo"),                                         # the CPU
+])
+def test_default_backend(cards, backend):
+    assert dist.default_backend(cards) == backend
+
+
+def test_card_id_names_the_physical_card(monkeypatch):
+    from types import SimpleNamespace
+    props = SimpleNamespace(uuid="GPU-1234")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: props)
+    assert dist._card_id(torch.device("cuda", 3)) == "GPU-1234"
+    props.uuid = None
+    assert dist._card_id(torch.device("cuda", 3)).endswith("/cuda:3")
+    assert dist._card_id(torch.device("cpu")) == ""

@@ -95,7 +95,19 @@ Phases (any failure ends the run with a nonzero exit):
    against each other and the one-process run; the gradient guard (a
    float32 input requiring grad raises; float64 on the card differentiates
    as on the CPU).
-9. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
+9. The solvers' ``dtype=`` at the RCEMIP extent (phase 5's case, its
+   inputs as NumPy float64 arrays, clouds, one spectral chunk, the default
+   layout): (a) float32 tables with ``dtype=torch.float32`` launch B1 2,
+   B2 1 and B3 1 for an LW + SW pair, each launch replayed against its
+   twin, the fluxes within ``STEP_TOL_WM2`` of phase 5's broadband run;
+   (b) float32 tables with ``dtype`` None solve in float64 (no launch)
+   within ``DTYPE_GAP_WM2`` of a float64-tables solve; (c) float64 tables
+   with ``dtype=torch.float32``: float64, no launch, within
+   ``DTYPE_GAP_WM2`` of (b); ms a solve of each.  Then the three
+   walkthroughs (``rte_rrtmgp_torch/examples``) on the card, each passing
+   its own asserts, with their launches; ``basic_usage``'s float64
+   gradient within ``GRAD_RTOL`` of the CPU's.
+10. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
    that runs it in phase 4), then the last line ``{"ok": true, "device":
    {...}}``.
 """
@@ -139,6 +151,7 @@ MESH_PROC_COLS = 1024          # columns a process of the two-process run
 MESH_PROC_TIMEOUT = 300        # seconds for the two processes
 MESH_MEAN_RTOL = 1e-5          # float32 flux means, sums in another order
 GRAD_NCOL, GRAD_RTOL = 16, 1e-10   # float64 gradient, card vs CPU
+DTYPE_GAP_WM2 = 1e-3           # phase 9 (b) vs float64 tables, (c) vs (b)
 SIGMA = 5.670374419e-8
 LAYOUTS = {"default": dict(cellw=True, layer_major=False),
            "cellw_off": dict(cellw=False, layer_major=False),
@@ -411,6 +424,7 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
                      f"{np.isfinite(a).all()}, min {a.min()}")
     print(f"[rfmip] rld/rlu/rsd/rsu finite and non-negative, "
           f"({RFMIP_EXPERIMENTS}, 61, 100)")
+    return paths, out["broadband"]
 
 
 def closure(out, dz) -> float:
@@ -1159,11 +1173,12 @@ def mesh_phase(dev, card, tables, args):
     solves = {
         "LW": (lambda **kw: lw.solve(t_lev=atm["t_lev"], t_sfc=atm["t_sfc"],
                                      emis_sfc=np.full((NCOL, kd_lw.nbnd),
-                                                      0.98), **common, **kw),
+                                                      0.98),
+                                     dtype=torch.float32, **common, **kw),
                {"gas_optics_interp": 4 * n_lw, "lw_sweep": 4 * n_lw}),
         "SW": (lambda **kw: sw.solve(mu0=atm["mu0"], sfc_alb_dir=alb,
                                      sfc_alb_dif=alb, delta_cloud=True,
-                                     **common, **kw),
+                                     dtype=torch.float32, **common, **kw),
                {"gas_optics_interp": 4 * n_sw, "sw_2stream": 4 * n_sw})}
     for band, (solve, want) in solves.items():
         base, _ = launches_of(solve)
@@ -1273,6 +1288,204 @@ def mesh_phase(dev, card, tables, args):
         if not (bool(torch.isfinite(gc).all()) and rel <= GRAD_RTOL):
             fail(f"float64 gradient wrt {name}: {rel:.3e} from the CPU's")
     print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def case_inputs(path):
+    """Phase 5's case input as the CLI reads it (``cli.main``), as NumPy
+    float64 arrays: (gas concentrations, the common solve arguments with
+    clouds, LW-only, SW-only without the TSI scaling, (ny, nx, nlay))."""
+    import numpy as np
+
+    from rte_rrtmgp_torch.cli import GAS_NAMES_ALL, _read_field, _read_vmr
+    from rte_rrtmgp_torch.models import GasConcs
+    from rte_rrtmgp_torch.utils.ncio import NcReader
+
+    with NcReader(path) as nc:
+        nx, ny, nlay = nc.dim("x"), nc.dim("y"), nc.dim("lay")
+        ncol = nx * ny
+        f = lambda name, n: np.asarray(_read_field(nc, name, n, ncol),
+                                       np.float64)
+        r = lambda name, *shape: np.asarray(nc.read(name),
+                                            np.float64).reshape(ncol, *shape)
+        gas = GasConcs()
+        for g in GAS_NAMES_ALL:
+            _read_vmr(nc, g, gas, nlay, ncol)
+        common = dict(gas_concs=gas, p_lay=f("p_lay", nlay),
+                      p_lev=f("p_lev", nlay + 1), t_lay=f("t_lay", nlay),
+                      col_dry=f("col_dry", nlay) if nc.has("col_dry")
+                      else None,
+                      **{k: f(k, nlay) for k in ("lwp", "iwp", "rel", "dei")})
+        lw = dict(t_lev=f("t_lev", nlay + 1), t_sfc=r("t_sfc"),
+                  emis_sfc=r("emis_sfc", -1))
+        sw = dict(mu0=r("mu0"), sfc_alb_dir=r("sfc_alb_dir", -1),
+                  sfc_alb_dif=r("sfc_alb_dif", -1), delta_cloud=True)
+        tsi = r("tsi") if nc.has("tsi") else None
+    return gas, common, lw, sw, tsi, (ny, nx, nlay)
+
+
+def dtype_phase(dev, card, record, replay, paths, cli_broadband):
+    """Phase 9: the solvers' ``dtype=`` at the RCEMIP extent, then the
+    walkthroughs on the card (module docstring)."""
+    import numpy as np
+    import torch
+
+    from rte_rrtmgp_torch import config
+    from rte_rrtmgp_torch.cases import check
+    from rte_rrtmgp_torch.data import synthetic
+    from rte_rrtmgp_torch.examples import (basic_usage, multichip_sharding,
+                                           raytrace_3d)
+    from rte_rrtmgp_torch.models import (CloudLUT, KDist, RadiationSolverLW,
+                                         RadiationSolverSW)
+    from rte_rrtmgp_torch.ops import kernels
+    from rte_rrtmgp_torch.utils.ncio import NcReader
+
+    tag = "[dtype]"
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    gas, common, lw_kw, sw_kw, tsi, (ny, nx, nlay) = case_inputs(
+        paths["input"])
+    names = gas.names()
+    tabs = {}
+    for dt in (f32, f64):
+        kd_lw = KDist.from_netcdf(paths["coefs_lw"], names, dtype=dt,
+                                  device=dev)
+        kd_sw = KDist.from_netcdf(paths["coefs_sw"], names, dtype=dt,
+                                  device=dev)
+        tabs[dt] = (RadiationSolverLW(kd_lw, CloudLUT.from_netcdf(
+                        paths["cloud_lw"], dtype=dt, device=dev)),
+                    RadiationSolverSW(kd_sw, CloudLUT.from_netcdf(
+                        paths["cloud_sw"], dtype=dt, device=dev)))
+    sw_kw["tsi_scaling"] = (
+        np.ones(ny * nx) if tsi is None
+        else tsi / tabs[f32][1].kdist.total_solar_irradiance())
+
+    def pair(tables, dtype):
+        """An LW + SW solve (the default layout, one chunk a spectrum)."""
+        lw, sw = tabs[tables]
+        layout = LAYOUTS["default"]
+        out = lw.solve(**common, **lw_kw, dtype=dtype, **layout)
+        out.update(sw.solve(**common, **sw_kw, dtype=dtype, **layout))
+        return out
+
+    def counted(fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    def gap(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max())
+                   for k in a if k in b)
+
+    want = {"gas_optics_interp": 2, "lw_sweep": 1, "sw_2stream": 1}
+    print(f"{tag} the rcemip case at {ny}x{nx} columns x {nlay} layers, "
+          "NumPy float64 inputs, clouds, one chunk a spectrum, the default "
+          f"layout; card {card}")
+
+    # (a) float32 tables, dtype=torch.float32: the kernels, recorded and
+    # replayed against their twins.
+    kernels.reset_launch_counts()
+    box = {}
+    calls = record(lambda: box.update(out=pair(f32, f32)))
+    got = {k: v for k, v in kernels.launch_counts().items() if v}
+    out_a = box.pop("out")
+    print(f"{tag} (a) float32 tables, dtype=float32: launches {got} "
+          f"(expected {want}); output dtype {out_a['lw_flux_up'].dtype}")
+    if got != want or out_a["lw_flux_up"].dtype != f32:
+        fail(f"dtype (a): launches {got}, dtype {out_a['lw_flux_up'].dtype}")
+    for name, recs in calls.items():
+        if recs:
+            replay(name, recs, "dtype (a)")
+    del calls
+    with NcReader(cli_broadband) as nc:
+        worst = {}
+        for v in check.DEFAULT_VARS:
+            a = out_a[v].double().cpu().numpy().T.reshape(nlay + 1, ny, nx)
+            worst[v] = float(np.abs(a - nc.read(v)).max())
+    print(f"{tag} (a) vs phase 5's broadband CLI run (W m-2): " + ", ".join(
+        f"{k}={v:.3e}" for k, v in worst.items()))
+    if max(worst.values()) > STEP_TOL_WM2:
+        fail(f"dtype (a): {max(worst.values()):.3e} W m-2 from phase 5's run")
+
+    # (b) float32 tables, dtype None: float64 (the dtype of p_lay), twins.
+    ref64, got64 = counted(lambda: pair(f64, None))
+    out_b, got_b = counted(lambda: pair(f32, None))
+    # (c) float64 tables, dtype=float32: float64, twins.
+    out_c, got_c = counted(lambda: pair(f64, f32))
+    gaps = {"(b) vs float64 tables": gap(out_b, ref64),
+            "(c) vs (b)": gap(out_c, out_b)}
+    for what, out, got in (("(b) float32 tables, dtype None", out_b, got_b),
+                           ("(c) float64 tables, dtype=float32", out_c,
+                            got_c),
+                           ("float64 tables, dtype None", ref64, got64)):
+        dts = sorted({str(v.dtype) for v in out.values()})
+        print(f"{tag} {what}: launches {got or 0}; output dtypes {dts}")
+        if got or dts != ["torch.float64"]:
+            fail(f"dtype {what}: launches {got}, output dtypes {dts}")
+    print(f"{tag} gaps (W m-2, limit {DTYPE_GAP_WM2}): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gaps.items()))
+    if max(gaps.values()) > DTYPE_GAP_WM2:
+        fail(f"dtype gaps {gaps} above {DTYPE_GAP_WM2} W m-2")
+    del out_a, out_b, out_c, ref64
+    for what, tables, dtype in (("(a) float32 tables, dtype=float32", f32,
+                                 f32),
+                                ("(b) float32 tables, dtype None", f32, None),
+                                ("(c) float64 tables, dtype=float32", f64,
+                                 f32)):
+        ms = cuda_ms(lambda: pair(tables, dtype), warmup=1, iters=3) / 2
+        print(f"{tag} {what}: {ms:.3f} ms a solve (LW + SW pair / 2, CUDA "
+              f"events, mean of 3 pairs, host input preparation included); "
+              f"card {card}")
+    del tabs
+    torch.cuda.empty_cache()
+
+    # (d) the walkthroughs on the card.
+    cellw = config.cellw_enabled(dev)
+    lm = cellw and config.layer_major_enabled(dev)
+    layout = "layer_major" if lm else ("default" if cellw else "cellw_off")
+    t0 = time.perf_counter()
+    res, got = counted(lambda: basic_usage.main(dev))
+    want = expected_launches(res["kd_lw"], res["kd_sw"], None)[layout]
+    print(f"{tag} basic_usage: {time.perf_counter() - t0:.2f} s; launches "
+          f"{got} (the two float32 solves in the {layout} layout: {want}; "
+          "the float64 gradient through the twins: none)")
+    if got != want:
+        fail(f"basic_usage launches {got}, expected {want}")
+    kd_cpu = KDist.from_raw(synthetic.make_kdist_raw(True, gpt_per_band=4),
+                            basic_usage.GASES, dtype=f32, device="cpu")
+    g_cpu = basic_usage.olr_gradient(basic_usage.olr_function(
+        kd_cpu, res["atm"], res["gas"], f64), f64, "cpu")
+    rel = abs(res["dolr"] - g_cpu) / abs(g_cpu)
+    print(f"{tag} basic_usage float64 d(OLR)/d(CO2 scale): card "
+          f"{res['dolr']:.15g}, CPU {g_cpu:.15g}, {rel:.3e} relative "
+          f"(limit {GRAD_RTOL:g})")
+    if rel > GRAD_RTOL:
+        fail(f"basic_usage gradient {rel:.3e} relative off the CPU's")
+    del res
+
+    t0 = time.perf_counter()
+    res, got = counted(lambda: multichip_sharding.main(dev))
+    solver_of = {"default": "lw_sweep", "cellw_off": "lw_sweep",
+                 "layer_major": "lw_sweep_lm"}[layout]
+    gas_of = "interp_rows_multi" if layout == "cellw_off" else \
+        "gas_optics_interp"
+    n = 1 + res["shards"]
+    print(f"{tag} multichip_sharding: {time.perf_counter() - t0:.2f} s; "
+          f"{res['shards']} shards; launches {got} (1 + {res['shards']} LW "
+          "solves, one chunk each)")
+    if got.get(gas_of) != n or got.get(solver_of) != n:
+        fail(f"multichip_sharding launches {got}: expected {gas_of} and "
+             f"{solver_of} {n} times")
+    del res
+
+    t0 = time.perf_counter()
+    res, got = counted(lambda: raytrace_3d.main(dev))
+    print(f"{tag} raytrace_3d: {time.perf_counter() - t0:.2f} s; launches "
+          f"{got} (pass 1's gas optics)")
+    if not got.get(gas_of):
+        fail(f"raytrace_3d: no {gas_of} launch ({got})")
+    del res
+    print(f"{tag} phase 9: {time.perf_counter() - t_phase:.1f} s; card {card}")
 
 
 def inputs_field(path, name, nlay, ncol):
@@ -1684,7 +1897,8 @@ def main(argv) -> int:
     # ---- 5. the CLI, the case tools and the RFMIP sweep ----
     del steps, outs
     torch.cuda.empty_cache()
-    cli_phase(dev, twins, record, replay, lw_scratch)
+    case_paths, cli_broadband = cli_phase(dev, twins, record, replay,
+                                          lw_scratch)
 
     # ---- 6. the forward Monte-Carlo tracer ----
     torch.cuda.empty_cache()
@@ -1698,7 +1912,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     mesh_phase(dev, card, tables, args)
 
-    # ---- 9. result lines ----
+    # ---- 9. the solvers' dtype and the walkthroughs ----
+    torch.cuda.empty_cache()
+    dtype_phase(dev, card, record, replay, case_paths, cli_broadband)
+
+    # ---- 10. result lines ----
     rows = []
     for name, meta in KERNEL_INFO.items():
         layout = meta["layout"]

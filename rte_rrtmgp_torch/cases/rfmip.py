@@ -72,12 +72,12 @@ def run(workdir: str, n_experiments: int = 18, n_sites: int = 100,
         out_lw = lw.solve(
             gas_concs=gc, p_lay=atm["p_lay"], p_lev=atm["p_lev"],
             t_lay=atm["t_lay"], t_lev=atm["t_lev"], t_sfc=atm["t_sfc"],
-            emis_sfc=emis)
+            emis_sfc=emis, dtype=f32)
         alb = np.full((ncol, kd_sw.nbnd), atm["sfc_alb_dir"], np.float32)
         out_sw = sw.solve(
             gas_concs=gc, p_lay=atm["p_lay"], p_lev=atm["p_lev"],
             t_lay=atm["t_lay"], mu0=atm["mu0"], sfc_alb_dir=alb,
-            sfc_alb_dif=alb)
+            sfc_alb_dif=alb, dtype=f32)
         rld[expt] = host(out_lw["lw_flux_dn"]).T
         rlu[expt] = host(out_lw["lw_flux_up"]).T
         rsd[expt] = host(out_sw["sw_flux_dn"]).T

@@ -209,7 +209,7 @@ def main(argv=None) -> int:
             gpt_chunk=args.gpt_chunk,
             output_bnd_fluxes=args.output_bnd_fluxes,
             output_optical=args.output_optical, with_fluxes=args.fluxes,
-            **clouds))
+            dtype=dtype, **clouds))
 
         status.print_message("Storing the longwave output.")
         out_nc.def_dim("gpt_lw", kd_lw.ngpt)
@@ -263,7 +263,7 @@ def main(argv=None) -> int:
             output_bnd_fluxes=args.output_bnd_fluxes,
             output_optical=args.output_optical, with_fluxes=args.fluxes,
             delta_cloud=args.delta_cloud, delta_aerosol=args.delta_aerosol,
-            **clouds, **aerosols))
+            dtype=dtype, **clouds, **aerosols))
 
         status.print_message("Storing the shortwave output.")
         out_nc.def_dim("gpt_sw", kd_sw.ngpt)

@@ -211,7 +211,8 @@ def main(argv=None) -> int:
             delta_aerosol=args.delta_aerosol, gpt_chunk=args.gpt_chunk,
             seed=args.seed, nee_mode=args.nee_mode,
             steps_per_dispatch=args.steps_per_dispatch,
-            spectral_mode=args.spectral_mode, **solve_clouds, **aerosols)
+            spectral_mode=args.spectral_mode, dtype=f32, **solve_clouds,
+            **aerosols)
 
     def sync():
         if device.type == "cuda":

@@ -213,7 +213,7 @@ def main(argv=None) -> int:
             gpt_per_dispatch=args.gpt_per_dispatch,
             spectral_mode=args.spectral_mode,
             output_bnd_fluxes=args.output_bnd_fluxes, seed=args.seed,
-            **clouds, **aerosols)
+            dtype=f32, **clouds, **aerosols)
 
     def sync():
         if device.type == "cuda":
@@ -253,7 +253,7 @@ def main(argv=None) -> int:
         lw_out = RadiationSolverLW(kd_lw, clut_lw).solve(
             gas_concs=gas_concs, p_lay=p_lay, p_lev=p_lev, t_lay=t_lay,
             t_lev=t_lev, t_sfc=t_sfc, emis_sfc=emis_sfc,
-            gpt_chunk=args.gpt_chunk, **clouds)
+            gpt_chunk=args.gpt_chunk, dtype=f32, **clouds)
         sync()
 
     status.print_message("Writing output.")

@@ -144,6 +144,10 @@ class KDist:
 
     # ---- derived sizes ----
     @property
+    def ngas(self) -> int:
+        return len(self.gas_names)
+
+    @property
     def nflav(self) -> int:
         return len(self.flavor)
 
@@ -156,12 +160,25 @@ class KDist:
         return self.kmajor.shape[2]
 
     @property
+    def npress(self) -> int:
+        return self.kmajor.shape[1] - 1
+
+    @property
     def ntemp(self) -> int:
         return self.kmajor.shape[3]
 
     @property
     def nbnd(self) -> int:
         return len(self.band_lims_gpt)
+
+    @property
+    def source_is_internal(self) -> bool:
+        """True for longwave (Planck) k-distributions."""
+        return self.totplnk is not None
+
+    @property
+    def has_rayleigh(self) -> bool:
+        return self.krayl is not None
 
     @property
     def device(self) -> torch.device:

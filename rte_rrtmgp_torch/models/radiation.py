@@ -30,7 +30,12 @@ tables' device, then the default; ``config.cellw_enabled`` /
   per-cell-weight kernel on layer-major inputs, so every (N, G) plane has
   cell (c, l) at row l*ncol + c, then the layer-major solver kernels.
 
-All tensors live on the tables' device.
+All tensors live on the tables' device.  ``dtype`` follows the JAX
+package's rule: ``None`` is the dtype of ``p_lay`` as given (float64 for a
+NumPy float64 array, as JAX has it with x64 on); an explicit dtype casts
+every input, the packed vmr and ``col_dry`` and leaves the tables as they
+are, so mixed operands promote as ``jnp`` promotes them.  A kernel
+launches only when all its operands are float32 CUDA tensors.
 """
 
 from __future__ import annotations
@@ -336,6 +341,16 @@ class _SolverBase:
         if col_dry is not None and (_host(col_dry) < 0).any():
             raise ValueError("col_dry is out of range (negative values)")
 
+    @staticmethod
+    def _dtype(dtype, p_lay) -> torch.dtype:
+        """The solve's dtype: ``dtype`` (a torch or NumPy dtype), or with
+        ``None`` the dtype of ``p_lay`` as given (the JAX package's
+        ``dtype or jnp.asarray(p_lay).dtype``)."""
+        if dtype is None:
+            dtype = p_lay.dtype if torch.is_tensor(p_lay) else np.asarray(
+                p_lay).dtype
+        return as_torch_dtype(dtype)
+
     def _tensor(self, a, dtype):
         return torch.as_tensor(_host(a) if not torch.is_tensor(a) else a,
                                dtype=dtype, device=self.kdist.device)
@@ -360,6 +375,14 @@ class _SolverBase:
         return bool(p[0, 0] < p[0, -1])
 
 
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or a NumPy dtype (``np.float32``) as its torch
+    counterpart."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
 def _host(a) -> np.ndarray:
     if torch.is_tensor(a):
         return a.detach().cpu().numpy()
@@ -373,12 +396,14 @@ class RadiationSolverLW(_SolverBase):
     def solve(self, gas_concs: GasConcs, p_lay, p_lev, t_lay, t_lev, t_sfc,
               emis_sfc, col_dry=None, lwp=None, iwp=None, rel=None, dei=None,
               gpt_chunk: Optional[int] = None, output_bnd_fluxes: bool = False,
-              n_gauss_angles: int = 1, output_optical: bool = False,
-              with_fluxes: bool = True, check_inputs: bool = True,
-              cellw: Optional[bool] = None,
+              n_gauss_angles: int = 1, dtype=None,
+              output_optical: bool = False, with_fluxes: bool = True,
+              check_inputs: bool = True, cellw: Optional[bool] = None,
               layer_major: Optional[bool] = None, mesh=None) -> dict:
         """emis_sfc: (ncol, nbnd) surface emissivity per band.  Runs on the
-        k-distribution's device.
+        k-distribution's device in ``dtype`` (module docstring; ``None``:
+        the dtype of ``p_lay``, so pass ``dtype=torch.float32`` with a
+        NumPy float64 atmosphere to run the float32 kernels).
 
         Cloud fields (lwp/iwp in g m-2, rel/dei in micron) enable the
         cloudy-sky path when provided.  ``with_fluxes=False`` skips the
@@ -390,7 +415,7 @@ class RadiationSolverLW(_SolverBase):
         pipeline, kernels included, on each column slab under its device
         and concatenates the outputs on the mesh's first device
         (``parallel/sharded.py``); a mesh with a ``gpt`` axis is refused."""
-        dtype = self.kdist.dtype
+        dtype = self._dtype(dtype, p_lay)
         if check_inputs:
             self._validate(p_lay, p_lev, t_lay, t_lev, t_sfc, col_dry)
         top_at_1 = self._detect_top(p_lay)
@@ -432,17 +457,18 @@ class RadiationSolverSW(_SolverBase):
               lwp=None, iwp=None, rel=None, dei=None, rh=None, aermr=None,
               gpt_chunk: Optional[int] = None, output_bnd_fluxes: bool = False,
               delta_cloud: bool = False, delta_aerosol: bool = False,
-              output_optical: bool = False, with_fluxes: bool = True,
-              check_inputs: bool = True, cellw: Optional[bool] = None,
+              dtype=None, output_optical: bool = False,
+              with_fluxes: bool = True, check_inputs: bool = True,
+              cellw: Optional[bool] = None,
               layer_major: Optional[bool] = None, mesh=None) -> dict:
         """sfc_alb_*: (ncol, nbnd); mu0: (ncol,); aermr: (ncol, nlay, 11).
-        Runs on the k-distribution's device.  ``with_fluxes`` and
+        Runs on the k-distribution's device.  ``dtype``, ``with_fluxes`` and
         ``check_inputs`` as in :meth:`RadiationSolverLW.solve`; ``cellw`` /
         ``layer_major`` choose the layout (module docstring; ``None``:
         environment, tuned winner, default); ``mesh``: a cols-only mesh
         runs the solve on each column slab (see
         :meth:`RadiationSolverLW.solve`)."""
-        dtype = self.kdist.dtype
+        dtype = self._dtype(dtype, p_lay)
         if check_inputs:
             self._validate(p_lay, p_lev, t_lay, col_dry=col_dry)
         top_at_1 = self._detect_top(p_lay)

@@ -25,7 +25,10 @@ Port of ``rte_rrtmgp_tpu/models/radiation_bw.py``, the equivalent of
 Keys as in the JAX package: the window starting at step ``s0`` folds
 ``1000003 * s0`` into the solve's key, and a step of g-point ``igpt`` folds
 ``igpt * 16`` into the window's key, so results depend on the window size
-exactly as there.  The solve runs in its tables' dtype on their device.
+exactly as there.  The solve runs on the tables' device in ``dtype``
+(float32 unless the caller asks for another, as in the JAX package); the
+per-step host arrays take that dtype, the tables keep theirs and mixed
+operands promote.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ..ops import gas_optics as gas_ops
 from ..ops import optics_ops
 from . import raytracer_bw as rbw
 from .kdist import KDist, numpy_dtype
-from .radiation import _host
+from .radiation import _host, as_torch_dtype
 
 # ---------------------------------------------------------------------------
 # Host-side spectral helpers (Radiation_solver_bw.cu:636-723).
@@ -177,7 +180,7 @@ class RadiationSolverBW:
               bg_column: str = "first", steps_per_dispatch=4,
               nee_mode: str = "walk", spectral_mode: str = "scan",
               respawn_mode: str = "auto", return_aux: bool = False,
-              spectral_steps: slice = slice(None)):
+              spectral_steps: slice = slice(None), dtype=torch.float32):
         """Render a camera view.  mode="image" -> {"XYZ": (3, ny, nx),
         "radiance"}; mode="broadband" -> {"radiance": (ny, nx)}.
 
@@ -187,10 +190,11 @@ class RadiationSolverBW:
         makes the solve's key.  With ``return_aux`` also a dict with each
         trace's loop counts (``"traces"``).  ``spectral_steps``: the slice
         of the spectral steps to render (all; ``tools/bench_bw`` times
-        one step's loop with a slice of one).
+        one step's loop with a slice of one).  ``dtype``: a torch or NumPy
+        dtype.
         """
         kd = self.kdist
-        dtype, dev = kd.dtype, kd.device
+        dtype, dev = as_torch_dtype(dtype), kd.device
         p = _host(p_lay)
         if not p[0, 0] > p[0, -1]:
             raise ValueError("BW solver expects the surface at layer 0")
@@ -281,7 +285,8 @@ class RadiationSolverBW:
                 grid_d=tuple(float(d) for d in grid_d),
                 kn_grid=tuple(kn_grid), photons_per_pixel=photons_per_pixel,
                 bg_column=bg_column, nee_mode=nee_mode,
-                spectral_mode=spectral_mode, respawn_mode=respawn_mode)
+                spectral_mode=spectral_mode, respawn_mode=respawn_mode,
+                dtype=dtype)
             acc = part if acc is None else tuple(a + b for a, b in
                                                  zip(acc, part))
             traces += aux
@@ -349,10 +354,10 @@ def _render(kd: KDist, key, gas_tau, gas_ssa, cld, aer, sfc_alb, land_use,
             mu0, azi, air_col, z_lev, igpt_arr, band_arr, toaf_arr, xyz_arr,
             rayl_arr, mie_idx_arr, rel_dom, mie, *, camera, grid_cells,
             grid_d, kn_grid, photons_per_pixel: int, bg_column: str,
-            nee_mode: str, spectral_mode: str, respawn_mode: str):
+            nee_mode: str, spectral_mode: str, respawn_mode: str, dtype):
     """One window of spectral steps.  Returns ((3, ny, nx) XYZ, (ny, nx)
     radiance, total source) summed over the window's steps, and each
-    trace's aux dict."""
+    trace's aux dict.  The solar source enters in the solve's ``dtype``."""
     nz, ny, nx = grid_cells
     ncol, nlay, _ = gas_tau.shape
     if nlay - nz < 1:
@@ -370,7 +375,7 @@ def _render(kd: KDist, key, gas_tau, gas_ssa, cld, aer, sfc_alb, land_use,
     rel3 = (rel_dom[:, :nz].T.reshape(nz, ny, nx)
             if mie is not None and rel_dom is not None else None)
     land = land_use.reshape(ny, nx)
-    solar = kd.solar_source
+    solar = kd.solar_source.to(dtype)
 
     def optics(i):
         k3, bgp, alb = step_optics(
@@ -409,7 +414,8 @@ def _render(kd: KDist, key, gas_tau, gas_ssa, cld, aer, sfc_alb, land_use,
             stack(lambda x: x[2]), land, kn_grid, grid_d, sun_dir, mu,
             **common, **mie_kw)
         flux_cam = counts * flux_w[:, None, None]
-        xyz_img = torch.einsum("sc,syx->cyx", xyz, flux_cam)
+        xyz_img = torch.einsum("sc,syx->cyx", xyz.to(flux_cam.dtype),
+                               flux_cam)
         radiance = flux_cam.sum(dim=0)
         return (xyz_img, radiance, (toa_src * toaf).sum()), [aux]
 

@@ -21,7 +21,9 @@ Port of ``rte_rrtmgp_tpu/models/radiation_rt.py``, the equivalent of
 G-point ``igpt`` draws from the stream of ``seed + igpt`` (the JAX
 package's ``fold_in(key, igpt)``), so the scan, the windows of
 ``gpt_per_dispatch`` and the ``lanes`` mode trace every g-point with the
-same stream.  The solve runs in its tables' dtype on their device.
+same stream.  The solve runs on the tables' device in ``dtype`` (float32
+unless the caller asks for another, as the JAX package's ``dtype or
+np.float32``); the tables keep theirs and mixed operands promote.
 
 Domain conventions: columns are an (ny, nx) raster with column index
 ``icol = iy*nx + ix``; the surface is at layer index 0 (LES-style grids);
@@ -44,7 +46,7 @@ from ..ops import gas_optics as gas_ops
 from ..ops import optics_ops, rte_sw
 from . import raytracer as rt
 from .kdist import KDist, numpy_dtype
-from .radiation import _host
+from .radiation import _host, as_torch_dtype
 
 
 class RTFluxes(NamedTuple):
@@ -365,9 +367,11 @@ class RadiationSolverRT:
               single_gpt: Optional[int] = None,
               output_bnd_fluxes: bool = False,
               gpt_per_dispatch: Optional[int] = None,
-              spectral_mode: str = "scan", seed: int = 0) -> RTFluxes:
+              spectral_mode: str = "scan", seed: int = 0,
+              dtype=None) -> RTFluxes:
         """grid_cells = (nz, ny, nx); grid_d = (dz, dy, dx) in meters.
-        Runs on the k-distribution's device in its dtype.
+        Runs on the k-distribution's device in ``dtype`` (a torch or NumPy
+        dtype; None: float32, the JAX package's default).
 
         Surface must be at layer index 0 (LES-style ordering;
         p_lay[:, 0] > p_lay[:, -1]).
@@ -384,7 +388,8 @@ class RadiationSolverRT:
         ``seed + igpt``.
         """
         kd = self.kdist
-        dtype, dev = kd.dtype, kd.device
+        dtype = as_torch_dtype(torch.float32 if dtype is None else dtype)
+        dev = kd.device
         if single_gpt is not None:
             # Reference --single-gpt: trace one g-point only (1-based).
             kd = kd.slice_gpt(single_gpt - 1, single_gpt)

@@ -18,15 +18,31 @@ import dataclasses
 import torch
 
 
+class _Sizes:
+    """(ncol, nlay, ngpt) read off ``tau``."""
+
+    @property
+    def ncol(self) -> int:
+        return self.tau.shape[0]
+
+    @property
+    def nlay(self) -> int:
+        return self.tau.shape[1]
+
+    @property
+    def ngpt(self) -> int:
+        return self.tau.shape[2]
+
+
 @dataclasses.dataclass(frozen=True)
-class OpticalProps1scl:
+class OpticalProps1scl(_Sizes):
     """Absorption-only optical depth (longwave no-scattering path)."""
 
     tau: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
-class OpticalProps2str:
+class OpticalProps2str(_Sizes):
     """Two-stream optical properties: optical depth, single-scattering
     albedo, asymmetry parameter."""
 

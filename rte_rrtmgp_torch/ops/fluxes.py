@@ -21,6 +21,11 @@ def sum_broadband(gpt_flux):
     return gpt_flux.sum(dim=-1)
 
 
+def net_broadband(flux_dn, flux_up):
+    """Net flux, down minus up."""
+    return flux_dn - flux_up
+
+
 def sum_byband(gpt_flux, gpt2band, nbnd: int):
     """Per-band sums: (ncol, nlev, ngpt) -> (ncol, nlev, nbnd).
 

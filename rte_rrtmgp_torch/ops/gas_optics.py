@@ -76,7 +76,9 @@ def interpolation(kd: KDist, play, tlay, col_gas) -> Interp:
     ftemp = (tlay - kd.temp_ref[(jtemp - 1).long()]) / kd.temp_ref_delta
 
     log_play = torch.log(play)
-    locpress = 1.0 + (log_play - kd.press_ref_log[0]) / kd.press_ref_log_delta
+    # press_ref_log[:1], not [0]: a 0-dim tensor would not promote float32
+    # inputs against float64 tables as jnp does.
+    locpress = 1.0 + (log_play - kd.press_ref_log[:1]) / kd.press_ref_log_delta
     jpress = torch.clamp(locpress.to(torch.int32), 1, npres - 1)
     fpress = locpress - jpress.to(dtype)
 
@@ -299,9 +301,9 @@ def _interp3d_rows_planes(kd: KDist, table_rows, interp: Interp,
 
 def tau_major(kd: KDist, interp: Interp):
     """tau from major gases: (ncol, nlay, ngpt).  float32 CUDA tensors: one
-    launch of the weight-plane kernel; CPU or float64 tensors: the plain
-    body."""
-    if takes_twin(kd.kmajor_rows):
+    launch of the weight-plane kernel; CPU tensors, or float64 tables or
+    weights: the plain body."""
+    if takes_twin(kd.kmajor_rows, interp.fmajor):
         return _interp3d_rows(kd, kd.kmajor_rows, interp, scale_by_colmix=True)
     return _interp3d_rows_planes(kd, kd.kmajor_rows, interp, True)
 
@@ -309,7 +311,7 @@ def tau_major(kd: KDist, interp: Interp):
 def planck_fraction(kd: KDist, interp: Interp):
     """Planck fraction per g-point: (ncol, nlay, ngpt).  Dispatches as
     :func:`tau_major`."""
-    if takes_twin(kd.planck_rows):
+    if takes_twin(kd.planck_rows, interp.fmajor):
         return _interp3d_rows(kd, kd.planck_rows, interp,
                               scale_by_colmix=False)
     return _interp3d_rows_planes(kd, kd.planck_rows, interp, False)
@@ -495,7 +497,7 @@ def _tau_minor_planes(kd: KDist, interp: Interp, play, tlay, col_gas, tau):
 def tau_minor(kd: KDist, interp: Interp, play, tlay, col_gas, tau):
     """Minor-gas optical depth, both atmospheres; adds into ``tau``.
     Dispatches as :func:`tau_major`."""
-    if takes_twin(tau):
+    if takes_twin(tau, kd.kminor_lower_trows, interp.fminor):
         return _add_minor(kd, interp,
                           minor_scaling(kd, interp, play, tlay, col_gas), tau)
     return _tau_minor_planes(kd, interp, play, tlay, col_gas, tau)
@@ -531,7 +533,7 @@ def tau_rayleigh(kd: KDist, interp: Interp, col_gas, col_dry):
     """Rayleigh scattering optical depth (compute_tau_rayleigh_kernel
     :674-718).  Dispatches as :func:`tau_major`."""
     fac = (col_gas[:, :, kd.idx_h2o] + col_dry)[:, :, None]
-    if takes_twin(kd.krayl_rows):
+    if takes_twin(kd.krayl_rows, interp.fminor):
         return _krayl_interp(kd, interp) * fac
     C, L = interp.tropo.shape
     jes, fms = _kernel_resolves(kd, interp)

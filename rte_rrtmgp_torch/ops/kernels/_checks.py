@@ -5,12 +5,15 @@ from __future__ import annotations
 import torch
 
 
-def takes_twin(t: torch.Tensor) -> bool:
-    """True when the wrapper takes its plain PyTorch twin: ``t`` lies on the
-    CPU, or it is float64 (the JAX package's dtype rule: its Pallas kernels
-    run for float32 only and float64 stays on the accelerator through XLA).
-    A float32 tensor on a card goes to the kernel or raises."""
-    return t.device.type == "cpu" or t.dtype == torch.float64
+def takes_twin(*ts) -> bool:
+    """True when the wrapper takes its plain PyTorch twin: the first of its
+    operands ``ts`` lies on the CPU, or one of them is float64 (the JAX
+    package's dtype rule: its Pallas kernels run for float32 only and
+    float64, or float32 mixed with float64, stays on the accelerator
+    through XLA).  float32 operands on a card go to the kernel or raise.
+    ``None`` operands are skipped."""
+    return ts[0].device.type == "cpu" or any(
+        t is not None and t.dtype == torch.float64 for t in ts)
 
 
 def refuse_grad(name: str, *ts) -> None:

@@ -123,7 +123,10 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
     scaling in :func:`gas_optics.minor_specs` order."""
     from .. import gas_optics
 
-    if takes_twin(kd.kmajor_rows):
+    tab_b = kd.krayl_rows if rayleigh else kd.planck_rows
+    if takes_twin(kd.kmajor_rows, tab_b, kd.kminor_lower_trows,
+                  kd.kminor_upper_trows, interp.col_mix, interp.fminor,
+                  interp.fmajor, sc):
         return gas_optics.majmin_plain(kd, interp, sc, rayleigh)
 
     dev = kd.kmajor_rows.device
@@ -132,7 +135,6 @@ def gas_optics_interp(kd, interp, sc, rayleigh: bool):
     F = kd.nflav
     R, E, G = kd.kmajor_rows.shape
     specs = tuple(gas_optics.minor_specs(kd))
-    tab_b = kd.krayl_rows if rayleigh else kd.planck_rows
     for name, t in (("kmajor_rows", kd.kmajor_rows), ("table_b", tab_b)):
         require(name, t, dev, f32, contiguous=False)
         if t.stride(2) != 1 or t.shape[1:] != (E, G):

@@ -83,7 +83,8 @@ def interp_rows_multi(tables, rows_list, jes, fms, fp, cms_list):
                                          == len(cms_list)):
         raise ValueError("interp_rows_multi: one or two tables, each with "
                          "its rows and col_mix planes (or None)")
-    if takes_twin(fms[0]):
+    if takes_twin(*fms, fp, *tables,
+                  *(c for cms in cms_list if cms is not None for c in cms)):
         from ..gas_optics import interp_rows_plain
         return interp_rows_plain(tables, rows_list, jes, fms, fp, cms_list)
     return _launch("interp_rows_multi", tables, rows_list, jes, fms, fp,
@@ -92,7 +93,7 @@ def interp_rows_multi(tables, rows_list, jes, fms, fp, cms_list):
 
 def interp_rows(table, rows, jes, fms, fp=None, cms=None):
     """One table interpolated over precomputed weight planes: (N, G)."""
-    if takes_twin(fms[0]):
+    if takes_twin(*fms, fp, table, *(cms or ())):
         from ..gas_optics import interp_rows_plain
         return interp_rows_plain([table], [rows], jes, fms, fp, [cms])[0]
     return _launch("interp_rows", [table], [rows], jes, fms, fp, [cms])[0]

@@ -183,7 +183,8 @@ def lw_sweep(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
     """One Gauss angle of the LW no-scattering solve, summed over g.
     tau/lay_src (ncol, nlay, G), lev_src (ncol, nlay+1, G), the rest
     (ncol, G).  Returns up, dn, jac each (ncol, nlay+1)."""
-    if takes_twin(tau):
+    if takes_twin(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
+                  inc_flux):
         from ..rte_lw import lw_sweep_plain
         return lw_sweep_plain(tau, lay_src, lev_src, sfc_emis, sfc_src,
                               sfc_src_jac, inc_flux, D, w)
@@ -233,7 +234,8 @@ def lw_sweep_lm(tau, lay_src, lev_src, sfc_emis, sfc_src, sfc_src_jac,
     lev_src the pieces (lev0 (ncol, G), inner ((nlay-1)*ncol, G), lev_last
     (ncol, G)), the rest (ncol, G).  Returns up, dn, jac each
     (ncol, nlay+1)."""
-    if takes_twin(tau):
+    if takes_twin(tau, lay_src, *lev_src, sfc_emis, sfc_src, sfc_src_jac,
+                  inc_flux):
         from ..rte_lw import lw_sweep_lm_plain
         return lw_sweep_lm_plain(tau, lay_src, lev_src, sfc_emis, sfc_src,
                                  sfc_src_jac, inc_flux, ncol, D, w)
@@ -256,7 +258,8 @@ def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
     """Two-stream + adding, summed over g.  tau/ssa/g (ncol, nlay, G), mu0
     (ncol,), albedos and incident fluxes (ncol, G).  Returns up, dn
     (diffuse + direct) and dir, each (ncol, nlay+1)."""
-    if takes_twin(tau):
+    if takes_twin(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+                  inc_flux_dif):
         from ..rte_sw import sw_2stream_plain
         return sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                                 inc_flux_dir, inc_flux_dif)
@@ -271,7 +274,8 @@ def sw_2stream_lm(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
     """:func:`sw_2stream` on layer-major planes: tau/ssa/g
     (nlay*ncol, G), mu0 (ncol,), albedos and incident fluxes (ncol, G).
     Returns up, dn (diffuse + direct) and dir, each (ncol, nlay+1)."""
-    if takes_twin(tau):
+    if takes_twin(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+                  inc_flux_dif):
         from ..rte_sw import sw_2stream_lm_plain
         return sw_2stream_lm_plain(tau, ssa, g, mu0, sfc_alb_dir,
                                    sfc_alb_dif, inc_flux_dir, inc_flux_dif,

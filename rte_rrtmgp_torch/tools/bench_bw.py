@@ -71,7 +71,7 @@ def make_render(cam: int = 64, ppp: int = 16, nee_mode: str = "walk",
             mode="broadband", seed=seed, nee_mode=nee_mode,
             spectral_mode=spectral_mode,
             steps_per_dispatch=steps_per_dispatch, respawn_mode=respawn_mode,
-            return_aux=True, spectral_steps=steps)
+            return_aux=True, spectral_steps=steps, dtype=dtype)
     return render, len(range(kd.ngpt)[steps])
 
 

@@ -703,7 +703,8 @@ def test_camera_solver_float64_on_card_takes_twins(cuda, tmp_path):
         camera=raytracer_bw.Camera(cam_type=2, nx=4, ny=3),
         grid_cells=(6, 3, 4), grid_d=(2500.0, 1000.0, 1000.0),
         kn_grid=(2, 2, 2), z_lev=np.asarray(atm["z_lev"]),
-        photons_per_pixel=4, mode="broadband", spectral_mode="lanes")
+        photons_per_pixel=4, mode="broadband", spectral_mode="lanes",
+        dtype=torch.float64)
     assert not any(kernels.launch_counts().values())
     rad = out["radiance"]
     assert rad.dtype == torch.float64 and rad.is_cuda

@@ -160,7 +160,8 @@ def test_step_inputs_and_accumulation_match_jax(case, mode, monkeypatch):
             camera=jbw.Camera(**CAM), dtype=np.float64,
             **_args(atm, kd_j.nbnd, **kw))
     got = rb.RadiationSolverBW(kd_p, cl_p, ae_p, **mie).solve(
-        camera=bw.Camera(**CAM), **_args(atm, kd_p.nbnd, **kw))
+        camera=bw.Camera(**CAM), dtype=torch.float64,
+        **_args(atm, kd_p.nbnd, **kw))
 
     n_steps = kd_p.ngpt * n_sub
     assert len(rec_p) == n_steps and len(rec_j) >= n_steps   # JAX pads
@@ -239,6 +240,7 @@ def test_lanes_equal_scan(case):
     solver = rb.RadiationSolverBW(kd)
     out = {m: solver.solve(camera=bw.Camera(**CAM), seed=3, spectral_mode=m,
                            mode="broadband", steps_per_dispatch=5,
+                           dtype=torch.float64,
                            **_args(atm, kd.nbnd, photons_per_pixel=1))["radiance"]
            for m in ("scan", "lanes")}
     assert float(out["scan"].max()) > 0

@@ -85,7 +85,7 @@ def test_twostream_pass_matches_jax(case):
     kw = _args(atm, kd.nbnd, raytracing=False, twostream=True,
                output_bnd_fluxes=True)
     ref = jrr.RadiationSolverRT(jkd, jcl, jal).solve(dtype=np.float64, **kw)
-    got = rr.RadiationSolverRT(kd, cl, al).solve(**kw)
+    got = rr.RadiationSolverRT(kd, cl, al).solve(dtype=F64, **kw)
     for name in ("sw_flux_up", "sw_flux_dn", "sw_flux_dn_dir",
                  "sw_bnd_flux_up", "sw_bnd_flux_dn", "sw_bnd_flux_dn_dir"):
         a, b = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
@@ -105,7 +105,7 @@ def test_gas_planes_match_jax(case, monkeypatch):
         rr._solve_rt_impl, return_gas_planes=True))
     kw = _args(atm, kd.nbnd, gpt_chunk=5)
     ref = jrr.RadiationSolverRT(jkd, jcl, jal).solve(dtype=np.float64, **kw)
-    got = rr.RadiationSolverRT(kd, cl, al).solve(**kw)
+    got = rr.RadiationSolverRT(kd, cl, al).solve(dtype=F64, **kw)
     for name, a, b in zip(("tau", "ssa"), got, ref):
         assert a.shape == (NY * NX, NLAY, kd.ngpt), name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
@@ -128,7 +128,7 @@ def test_clear_sky_mc_matches_twostream(case, gpt):
     _, (kd, cl, al), atm = case
     out = rr.RadiationSolverRT(kd).solve(
         **_args(atm, kd.nbnd, clouds=False, aerosols=False, twostream=True,
-                single_gpt=gpt, photons_per_pixel=256))
+                single_gpt=gpt, photons_per_pixel=256, dtype=F64))
     toa = float(kd.solar_source[gpt - 1]) * 0.8
     np.testing.assert_allclose(out.rt_flux_tod_dn.numpy(), toa, rtol=1e-5)
     mc_sfc = float((out.rt_flux_sfc_dir + out.rt_flux_sfc_dif).mean())
@@ -153,7 +153,7 @@ def test_tod_extra_cell(case, monkeypatch):
         seen.append(a), trace(*a, **kw))[1])
     solver = rr.RadiationSolverRT(kd)
     kw = _args(atm, kd.nbnd, clouds=False, aerosols=False, single_gpt=4,
-               photons_per_pixel=4)
+               photons_per_pixel=4, dtype=F64)
     out = solver.solve(**kw)
     assert out.rt_flux_abs_dir.shape == (NZ + 1, NY, NX)
     k_ext, k_sca_gas = seen[0][1:3]
@@ -183,7 +183,8 @@ def window_case(case):
     clouds and aerosols, by-band output."""
     _, (kd, cl, al), atm = case
     solver = rr.RadiationSolverRT(kd.slice_gpt(0, 4), cl, al)
-    kw = _args(atm, 4, output_bnd_fluxes=True, photons_per_pixel=8, seed=3)
+    kw = _args(atm, 4, output_bnd_fluxes=True, photons_per_pixel=8, seed=3,
+               dtype=F64)
     return solver, kw, solver.solve(**kw)
 
 

@@ -188,3 +188,34 @@ def test_make_atmosphere_equals_jax(perturb):
         else:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
                                           err_msg=k)
+
+
+@pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
+def test_small_accessors_equal_jax(raws, longwave):
+    """KDist's ngas / npress / source_is_internal / has_rayleigh, the
+    optical-property classes' ncol / nlay / ngpt and
+    ``fluxes.net_broadband`` return what the JAX package's return."""
+    from rte_rrtmgp_tpu.models import types as jtypes
+    from rte_rrtmgp_tpu.ops import fluxes as jfluxes
+    from rte_rrtmgp_torch.models import types
+    from rte_rrtmgp_torch.ops import fluxes
+
+    port = KDist.from_raw(raws[longwave], GASES, dtype=torch.float64,
+                          device="cpu")
+    jkd = JKDist.from_raw(jsyn.make_kdist_raw(longwave, gpt_per_band=2),
+                          GASES, dtype=np.float64)
+    for name in ("ngas", "npress", "source_is_internal", "has_rayleigh"):
+        assert getattr(port, name) == getattr(jkd, name), name
+    tau = np.random.default_rng(0).uniform(size=(3, 5, port.ngpt))
+    for cls, jcls, fields in (
+            (types.OpticalProps1scl, jtypes.OpticalProps1scl, ("tau",)),
+            (types.OpticalProps2str, jtypes.OpticalProps2str,
+             ("tau", "ssa", "g"))):
+        p = cls(**{f: torch.from_numpy(tau) for f in fields})
+        j = jcls(**{f: tau for f in fields})
+        assert (p.ncol, p.nlay, p.ngpt) == (j.ncol, j.nlay, j.ngpt) \
+            == (3, 5, port.ngpt)
+    dn, up = tau[:, :, 0], tau[:, :, 1]
+    np.testing.assert_array_equal(
+        fluxes.net_broadband(torch.from_numpy(dn), torch.from_numpy(up))
+        .numpy(), np.asarray(jfluxes.net_broadband(dn, up)))

@@ -107,7 +107,24 @@ Phases (any failure ends the run with a nonzero exit):
    walkthroughs (``rte_rrtmgp_torch/examples``) on the card, each passing
    its own asserts, with their launches; ``basic_usage``'s float64
    gradient within ``GRAD_RTOL`` of the CPU's.
-10. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
+10. The repository's tools around the main path
+   (``rte_rrtmgp_torch/tools``, in ``build/chip_tools``): ``crosscheck``
+   (the ``allsky`` and ``aerosky`` cases through the CLI in CPU float64,
+   CPU float32 and card float32, the card within 0.7 W m-2 of the CPU's
+   float32, each card run's B1-B3 launches held to the exact counts of the
+   CLI's resolved layout at ``gpt_chunk`` 64; the aerosol optics on the
+   card); ``profile_stages`` at the flagship shape in the three layouts
+   and at 4096x256 in the default layout: the step profiled, the card's
+   time by the driver's stage ranges, their sum between 90% and 100% of
+   the step's device ms, the profiled step's fluxes within
+   ``STEP_TOL_WM2`` of an unprofiled ``make_step``'s; ``ablate`` at the
+   flagship shape (B5 launched); ``bench_rt_solve`` at ``RT_SOLVE_CUT``
+   (one solve of 14 g-points in ``lanes`` over the full 64x64 columns at 4
+   photons a pixel), its flux at the top exact and energy closed within
+   ``RT_CLOSURE``; ``scaling_bench`` on meshes of 1, 2 and
+   4 positions in both modes, each within ``STEP_TOL_WM2`` of the
+   unsharded step.
+11. One line ``{"kernels": [...]}`` (each kernel's numbers from the layout
    that runs it in phase 4), then the last line ``{"ok": true, "device":
    {...}}``.
 """
@@ -152,6 +169,16 @@ MESH_PROC_TIMEOUT = 300        # seconds for the two processes
 MESH_MEAN_RTOL = 1e-5          # float32 flux means, sums in another order
 GRAD_NCOL, GRAD_RTOL = 16, 1e-10   # float64 gradient, card vs CPU
 DTYPE_GAP_WM2 = 1e-3           # phase 9 (b) vs float64 tables, (c) vs (b)
+TOOLS_DIR = os.path.join("build", "chip_tools")
+TOOLS_BIG = (4096, 256)        # profile_stages at the RCEMIP extent
+SCALING_NCOL = 1024            # scaling_bench's columns a mesh position
+# bench_rt_solve's cut: the full 64x64 columns at 4 photons a pixel (of
+# 16), one g-point a band (14 of 224) traced in one batched loop (``lanes``:
+# the longest walk's tail once, not 14 times), no warm-up solve (phases 1-9
+# have warmed the card): 41.7 s a solve where 16 photons a pixel took 73.7
+# s in lanes and 509 s in the tool's default scan.
+RT_SOLVE_CUT = dict(nx=64, nlay=256, nz=64, ppp=4, gpt_per_band=1,
+                    spectral="lanes", warmup=0)
 SIGMA = 5.670374419e-8
 LAYOUTS = {"default": dict(cellw=True, layer_major=False),
            "cellw_off": dict(cellw=False, layer_major=False),
@@ -192,23 +219,6 @@ def fail(msg: str):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def cuda_ms(fn, warmup: int, iters: int) -> float:
-    """Mean ms of ``fn`` on the card (CUDA events, after warm-up)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 class Patch:
@@ -509,7 +519,7 @@ def tracer_phase(dev, card, record, replay):
     # a step and the card's busy time (the kernels' summed device time),
     # against the profiled span and against the same trace unprofiled
     # (the profiler slows the host).
-    from torch.profiler import ProfilerActivity, profile
+    from rte_rrtmgp_torch.tools.profile_stages import device_rows, profiled
 
     fields = [torch.as_tensor(f, device=dev)
               for f in bench_rt.make_fields(RT_NZ, RT_NX, RT_NX)]
@@ -525,14 +535,9 @@ def tracer_phase(dev, card, record, replay):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, aux = trace(7)
-        torch.cuda.synchronize()
+    (_, aux), prof = profiled(lambda: trace(7), dev)
     span = (time.perf_counter() - t0) * 1e3
-    dev_rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
-                      key=lambda e: -e.device_time_total)
+    dev_rows = device_rows(prof)
     busy = sum(e.device_time_total for e in dev_rows) / 1e3
     events = sum(e.count for e in dev_rows)
     print(f"{tag} profiled trace (knull (4,4,4), its first {aux['steps']} "
@@ -784,7 +789,7 @@ def bw_phase(dev, card, record, replay):
     # One profiled trace of the frame's 10th spectral step, cut at
     # BW_PROFILE_STEPS steps (all in the widest phase): device events a
     # step and the card's busy time, against the same steps unprofiled.
-    from torch.profiler import ProfilerActivity, profile
+    from rte_rrtmgp_torch.tools.profile_stages import device_rows, profiled
 
     class _Captured(Exception):
         pass
@@ -810,14 +815,9 @@ def bw_phase(dev, card, record, replay):
     sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, aux = trace()
-        sync()
+    (_, aux), prof = profiled(trace, dev)
     span = (time.perf_counter() - t0) * 1e3
-    dev_rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
-                      key=lambda e: -e.device_time_total)
+    dev_rows = device_rows(prof)
     busy = sum(e.device_time_total for e in dev_rows) / 1e3
     events = sum(e.count for e in dev_rows)
     n = aux["steps"]
@@ -1108,6 +1108,7 @@ def mesh_phase(dev, card, tables, args):
     from rte_rrtmgp_torch.parallel.sharded import sharded_step
     from rte_rrtmgp_torch.tools.multihost_smoke import (result_values,
                                                         slab_sums)
+    from rte_rrtmgp_torch.tools.profile_stages import event_ms
 
     tag = "[mesh]"
     t_phase = time.perf_counter()
@@ -1185,8 +1186,9 @@ def mesh_phase(dev, card, tables, args):
         out, got = launches_of(lambda: solve(mesh=mesh4))
         held(f"RadiationSolver{band}.solve(mesh=(4,) mesh)", out, base, got,
              want)
-        t_one = cuda_ms(solve, warmup=1, iters=3)
-        t_mesh = cuda_ms(lambda: solve(mesh=mesh4), warmup=1, iters=3)
+        t_one = event_ms(solve, dev, warmup=1, iters=3)
+        t_mesh = event_ms(lambda: solve(mesh=mesh4), dev, warmup=1,
+                          iters=3)
         print(f"{tag} {band} solve: {t_one:.3f} ms unsharded, {t_mesh:.3f} "
               f"ms on the (4,) mesh (host input preparation included); "
               f"card {card}")
@@ -1337,6 +1339,7 @@ def dtype_phase(dev, card, record, replay, paths, cli_broadband):
     from rte_rrtmgp_torch.models import (CloudLUT, KDist, RadiationSolverLW,
                                          RadiationSolverSW)
     from rte_rrtmgp_torch.ops import kernels
+    from rte_rrtmgp_torch.tools.profile_stages import event_ms
     from rte_rrtmgp_torch.utils.ncio import NcReader
 
     tag = "[dtype]"
@@ -1432,7 +1435,8 @@ def dtype_phase(dev, card, record, replay, paths, cli_broadband):
                                 ("(b) float32 tables, dtype None", f32, None),
                                 ("(c) float64 tables, dtype=float32", f64,
                                  f32)):
-        ms = cuda_ms(lambda: pair(tables, dtype), warmup=1, iters=3) / 2
+        ms = event_ms(lambda: pair(tables, dtype), dev, warmup=1,
+                      iters=3) / 2
         print(f"{tag} {what}: {ms:.3f} ms a solve (LW + SW pair / 2, CUDA "
               f"events, mean of 3 pairs, host input preparation included); "
               f"card {card}")
@@ -1497,6 +1501,145 @@ def inputs_field(path, name, nlay, ncol):
         return _read_field(nc, name, nlay, ncol)
 
 
+def tools_phase(dev, card, tables, args):
+    """10. The tools of ``rte_rrtmgp_torch/tools`` that drive the main path:
+    crosscheck, profile_stages, ablate, bench_rt_solve, scaling_bench."""
+    import torch
+
+    from rte_rrtmgp_torch import step
+    from rte_rrtmgp_torch.cases.profiles import make_atmosphere
+    from rte_rrtmgp_torch.models import KDist
+    from rte_rrtmgp_torch.ops import kernels
+    from rte_rrtmgp_torch.tools import (ablate, bench_rt_solve, crosscheck,
+                                        profile_stages, scaling_bench)
+
+    tag = f"[tools] ({card})"
+    t_phase = time.perf_counter()
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+
+    # ---- crosscheck: allsky and aerosky, card f32 against the CPU ----
+    t0 = time.perf_counter()
+    res = crosscheck.run(os.path.join(TOOLS_DIR, "crosscheck"), device=dev)
+    layout = profile_stages.layout_name(dev)
+    gases = make_atmosphere(1, 72)["gas_concs"].names()
+    for case in crosscheck.CASES:
+        r = res[case]
+        kd_lw, kd_sw = (KDist.from_netcdf(os.path.join(
+            TOOLS_DIR, "crosscheck", case, f"coefficients_{s}.nc"), gases,
+            device=dev) for s in ("lw", "sw"))
+        expected = {k: v for k, v in expected_launches(
+            kd_lw, kd_sw, 64)[layout].items() if v}
+        got = r["launches"]
+        print(f"{tag} crosscheck {case}: card f32 vs CPU f32 (W m-2) " + ", ".join(
+            f"{k}={v:.3e}" for k, v in r["dev_vs_cpu_f32"].items()))
+        print(f"{tag} crosscheck {case}: CPU f32 vs CPU f64 (W m-2) " + ", ".join(
+            f"{k}={v:.3e}" for k, v in r["cpu_f32_vs_f64"].items()))
+        print(f"{tag} crosscheck {case}: launches {got} (layout {layout}, "
+              f"expected on the card {expected})")
+        if got["dev_f32"] != expected or got["cpu_f64"] or got["cpu_f32"]:
+            fail(f"crosscheck {case}: launches {got}, expected {expected} "
+                 "on the card and none on the CPU")
+    if not res["ok"]:
+        fail("crosscheck: card f32 beyond 0.7 W m-2 of CPU f32")
+    print(f"{tag} crosscheck passed (card f32 within "
+          f"{crosscheck.GATE_WM2} W m-2 of CPU f32): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- profile_stages: three layouts at the flagship shape, then the
+    # default layout at the RCEMIP extent; the card's time by the driver's
+    # stage ranges ----
+    shapes = [(name, NCOL, NLAY) for name in LAYOUTS]
+    shapes.append(("default", *TOOLS_BIG))
+    for name, ncol, nlay in shapes:
+        t0 = time.perf_counter()
+        if (ncol, nlay) == (NCOL, NLAY):
+            a = args
+        else:
+            arrs = step.atmos_arrays(ncol, nlay, seed=0)
+            a = [torch.as_tensor(arrs[k], device=dev) for k in step.ARG_NAMES]
+        r = profile_stages.profile(ncol, nlay, GPT_CHUNK, dev, tables=tables,
+                                   **LAYOUTS[name])
+        ref = step.make_step(*tables, gpt_chunk=GPT_CHUNK,
+                             **LAYOUTS[name])(*a)
+        print(f"{tag} profile_stages {ncol}x{nlay}, gpt_chunk {GPT_CHUNK}, "
+              f"layout {r['layout']} (device ms a call, x calls, ms a step):")
+        profile_stages.print_table(r, prefix=f"{tag}   ")
+        worst = max(float((r["out"][k] - ref[k]).abs().max()) for k in ref)
+        print(f"{tag}   stages {r['sum_ms']:.3f} of the step's "
+              f"{r['device_ms']:.3f} device ms; profiled step vs make_step "
+              f"{worst:.3e} W m-2; {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"profile_stages": {
+            k: r[k] for k in ("stages", "calls", "sum_ms", "device_ms",
+                              "other_ms", "event_ms", "layout", "shape")},
+            "card": card}))
+        if r["layout"] != name:
+            fail(f"profile_stages: layout {r['layout']}, expected {name}")
+        if worst > STEP_TOL_WM2 or sorted(r["out"]) != sorted(ref):
+            fail(f"profile_stages {name} {ncol}x{nlay}: profiled step vs "
+                 f"make_step {worst:.3e} W m-2")
+        # Every stage's work counted once: the ranges hold all the card's
+        # time but make_step's zero inputs.
+        if not 0.9 * r["device_ms"] <= r["sum_ms"] <= r["device_ms"] * 1.001:
+            fail(f"profile_stages {name} {ncol}x{nlay}: stages {r['sum_ms']}"
+                 f" ms of the step's {r['device_ms']} device ms")
+        del r, ref, a
+        torch.cuda.empty_cache()
+
+    # ---- ablate at the flagship shape ----
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    print(f"{tag} ablate {NCOL}x{NLAY}, full spectrum (ms a pipeline, "
+          "delta from the previous of its spectrum):")
+    abl = ablate.run(NCOL, NLAY, dev)
+    got = {k: v for k, v in kernels.launch_counts().items() if v}
+    print(f"{tag} ablate: {time.perf_counter() - t0:.1f} s; launches {got}")
+    if not got.get("interp_rows") or set(got) != {"interp_rows"}:
+        fail(f"ablate: launches {got}, expected interp_rows (B5) only")
+    print(json.dumps({"ablate_ms": abl, "card": card}))
+    torch.cuda.empty_cache()
+
+    # ---- bench_rt_solve at its cut ----
+    t0 = time.perf_counter()
+    r = bench_rt_solve.measure(device=dev, **RT_SOLVE_CUT)
+    out = r.pop("out")
+    print(f"{tag} bench_rt_solve cut {RT_SOLVE_CUT} (the tool's defaults: "
+          "gpt_per_band 16, 224 g-points in scan, one warm-up solve): "
+          f"{r['value']:.2f} s a solve, {r['photons_per_s']:.1f} photons/s, "
+          f"{r['ngpt']} g-points; toa_down {r['tod_dn_mean_wm2']:.4f} W m-2 "
+          f"(exact {r['tod_dn_exact_wm2']:.4f}), energy closure "
+          f"{r['closure']:+.4%}; {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"bench_rt_solve": r, "cut": RT_SOLVE_CUT, "card": card}))
+    fields = [getattr(out, k) for k in out._fields if k.startswith("rt_flux")]
+    if not all(bool(torch.isfinite(f).all()) for f in fields):
+        fail("bench_rt_solve: non-finite MC fluxes")
+    if abs(r["tod_dn_mean_wm2"] - r["tod_dn_exact_wm2"]) > \
+            1e-5 * r["tod_dn_exact_wm2"]:
+        fail(f"bench_rt_solve: toa_down {r['tod_dn_mean_wm2']}, exact "
+             f"{r['tod_dn_exact_wm2']}")
+    if abs(r["closure"]) > RT_CLOSURE:
+        fail(f"bench_rt_solve: energy closure {r['closure']:+.4%}")
+    del out, fields
+    torch.cuda.empty_cache()
+
+    # ---- scaling_bench: 1, 2, 4 positions, both modes ----
+    t0 = time.perf_counter()
+    for n in (1, 2, 4):
+        arrs = step.atmos_arrays(SCALING_NCOL * n, NLAY, seed=0)
+        ref = step.make_step(*tables, gpt_chunk=GPT_CHUNK)(
+            *[torch.as_tensor(arrs[k], device=dev) for k in step.ARG_NAMES])
+        for mode in ("annotate", "shardmap"):
+            r, out = scaling_bench.measure(n, mode, tables, arrs, GPT_CHUNK,
+                                           iters=3, device=dev)
+            worst = max(float((out[k] - ref[k]).abs().max()) for k in ref)
+            print(f"{tag} scaling_bench {json.dumps(r)}; vs the unsharded "
+                  f"step {worst:.3e} W m-2")
+            if worst > STEP_TOL_WM2:
+                fail(f"scaling_bench {mode} {n}: {worst:.3e} W m-2 from the "
+                     "unsharded step")
+    print(f"{tag} scaling_bench: {time.perf_counter() - t0:.1f} s")
+    print(f"{tag} phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv) -> int:
     import torch
 
@@ -1510,6 +1653,7 @@ def main(argv) -> int:
     from rte_rrtmgp_torch.ops.kernels import gas_optics_interp as k_interp
     from rte_rrtmgp_torch.ops.kernels import interp_rows as k_rows
     from rte_rrtmgp_torch.ops.kernels import solvers as k_solvers
+    from rte_rrtmgp_torch.tools.profile_stages import event_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1720,8 +1864,8 @@ def main(argv) -> int:
                     fail(f"{name} {label}: max abs err {err:.3e} > "
                          f"{REL_TOL:g} * max {scale:.4e}")
             del got, ref
-            ms = cuda_ms(kern, warmup=3, iters=20)
-            plain_ms = cuda_ms(plain, warmup=1, iters=3)
+            ms = event_ms(kern, dev, warmup=3, iters=20)
+            plain_ms = event_ms(plain, dev, warmup=1, iters=3)
             b_ms, b_by = bound(b_bytes, ops)
             print(f"[kernel] {tag} {name} {label}: max abs err {max(errs):.3e} "
                   f"(tol {REL_TOL:g} x output max) ms {ms:.4f} plain_ms "
@@ -1866,11 +2010,8 @@ def main(argv) -> int:
         outs[layout] = out
 
         if "--profile" in argv:
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                run_step(*args)
-                torch.cuda.synchronize()
+            from rte_rrtmgp_torch.tools.profile_stages import profiled
+            _, prof = profiled(lambda: run_step(*args), dev)
             print(f"[profile] {layout}")
             print(prof.key_averages().table(sort_by="cuda_time_total",
                                             row_limit=25))
@@ -1916,7 +2057,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     dtype_phase(dev, card, record, replay, case_paths, cli_broadband)
 
-    # ---- 10. result lines ----
+    # ---- 10. the tools around the main path ----
+    torch.cuda.empty_cache()
+    tools_phase(dev, card, tables, args)
+
+    # ---- 11. result lines ----
     rows = []
     for name, meta in KERNEL_INFO.items():
         layout = meta["layout"]

@@ -30,6 +30,12 @@ tables' device, then the default; ``config.cellw_enabled`` /
   per-cell-weight kernel on layer-major inputs, so every (N, G) plane has
   cell (c, l) at row l*ncol + c, then the layer-major solver kernels.
 
+Each stage of the pipeline (``STAGES``: inputs, column gas, cloud and
+aerosol optics, interpolation, gas optics, Planck sources, optics
+combination, solve, fluxes) runs inside a ``torch.profiler`` range of its
+name while a profiler runs, so a profile of any solve gives the card's
+time by stage (``tools/profile_stages.py``).
+
 All tensors live on the tables' device.  ``dtype`` follows the JAX
 package's rule: ``None`` is the dtype of ``p_lay`` as given (float64 for a
 NumPy float64 array, as JAX has it with x64 on); an explicit dtype casts
@@ -40,6 +46,7 @@ launches only when all its operands are float32 CUDA tensors.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -64,6 +71,23 @@ def _flip_lay(a):
     return torch.flip(a, dims=(1,))
 
 
+# The pipeline's stages, each a named torch.profiler range while a profiler
+# runs (``tools/profile_stages.py`` reads the card's time by range).
+STAGES = tuple(f"{s}_{n}" for s in ("lw", "sw") for n in (
+    "inputs", "col_gas", "cloud_optics", "interpolation", "layer_major",
+    "gas_optics", "solve", "fluxes")) + (
+    "lw_planck", "lw_cloud_add", "sw_aerosol_optics", "sw_combine",
+    "sw_cloud_increment", "sw_aerosol_increment")
+
+
+def _stage(name: str):
+    """The range of stage ``name`` for torch.profiler; nothing (no cost but
+    one check) while no profiler runs."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
 def _layouts(kd: KDist, cellw, layer_major, broadband_only: bool):
     """(cellw, lm): ``None`` resolved for the tables' device (environment,
     then the tuned winner, then the default); layer-major applies only with
@@ -84,27 +108,33 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
                    output_optical: bool = False, with_fluxes: bool = True,
                    cellw: Optional[bool] = None,
                    layer_major: Optional[bool] = None):
-    if not top_at_1:
-        p_lay, t_lay, vmr, col_dry = map(_flip_lay, (p_lay, t_lay, vmr, col_dry))
-        p_lev, t_lev = map(_flip_lay, (p_lev, t_lev))
-        if with_clouds:
-            lwp, iwp, rel, dei = map(_flip_lay, (lwp, iwp, rel, dei))
+    with _stage("lw_inputs"):
+        if not top_at_1:
+            p_lay, t_lay, vmr, col_dry = map(_flip_lay,
+                                             (p_lay, t_lay, vmr, col_dry))
+            p_lev, t_lev = map(_flip_lay, (p_lev, t_lev))
+            if with_clouds:
+                lwp, iwp, rel, dei = map(_flip_lay, (lwp, iwp, rel, dei))
     ncol, nlay = p_lay.shape
     nlev = nlay + 1
     nbnd = kd.nbnd
     dtype = p_lay.dtype
 
-    col_gas = gas_ops.build_col_gas(vmr, col_dry)
+    with _stage("lw_col_gas"):
+        col_gas = gas_ops.build_col_gas(vmr, col_dry)
     cld = None
     if with_clouds:
-        cld = cloud_ops.cloud_optics_1scl(cloud_lut, lwp, iwp, rel, dei)
+        with _stage("lw_cloud_optics"):
+            cld = cloud_ops.cloud_optics_1scl(cloud_lut, lwp, iwp, rel, dei)
 
     new = lambda *shape: torch.zeros(shape, dtype=dtype, device=p_lay.device)
-    flux_up, flux_dn = new(ncol, nlev), new(ncol, nlev)
-    bnd_up = new(ncol, nlev, nbnd) if output_bnd_fluxes else None
-    bnd_dn = new(ncol, nlev, nbnd) if output_bnd_fluxes else None
+    with _stage("lw_fluxes"):
+        flux_up, flux_dn = new(ncol, nlev), new(ncol, nlev)
+        bnd_up = new(ncol, nlev, nbnd) if output_bnd_fluxes else None
+        bnd_dn = new(ncol, nlev, nbnd) if output_bnd_fluxes else None
 
-    interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
+    with _stage("lw_interpolation"):
+        interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("lw_tau", "lay_source", "lev_source",
                                "sfc_source")} if output_optical else None
     cellw, lm = _layouts(kd, cellw, layer_major, with_fluxes
@@ -112,34 +142,34 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
     if lm:
         # Layer-major: the gas-optics kernel runs on (nlay, ncol) inputs and
         # writes (nlay, ncol, G) = the (N, G) planes the solver reads.
-        lm_in = tuple(map(gas_ops.layer_major, (interp, p_lay, t_lay, col_gas)))
-        cld_tau_lm = gas_ops._cells(cld.tau, "lm") if with_clouds else None
+        with _stage("lw_layer_major"):
+            lm_in = tuple(map(gas_ops.layer_major,
+                              (interp, p_lay, t_lay, col_gas)))
+            cld_tau = gas_ops._cells(cld.tau, "lm") if with_clouds else None
+    elif with_clouds:
+        cld_tau = cld.tau
 
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
-        if lm:
-            tau, pfrac = (a.reshape(nlay * ncol, g1 - g0) for a in
-                          gas_ops.tau_majmin_and_pfrac(kdc, *lm_in))
-            src = gas_ops.planck_source_lm(kdc, t_lay, t_lev, t_sfc,
-                                           sfc_lay=nlay - 1, pfrac_lm=pfrac,
-                                           ncol=ncol)
-            if with_clouds:
-                tau = tau + flux_ops.expand_bands_to_gpt(cld_tau_lm,
-                                                         kdc.gpt2band)
-            up_bb, dn_bb, _ = rte_lw.lw_solver_noscat_broadband_lm(
-                tau, src.lay_src, src.lev_src,
-                flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band),
-                src.sfc_src, src.sfc_src_jac, new(ncol, g1 - g0), ncol=ncol,
-                n_gauss_angles=n_gauss_angles)
-            flux_up = flux_up + up_bb
-            flux_dn = flux_dn + dn_bb
-            continue
-        tau, pfrac = gas_ops.tau_majmin_and_pfrac(kdc, interp, p_lay, t_lay,
-                                                  col_gas, cellw=cellw)
-        src = gas_ops.planck_source(kdc, interp, t_lay, t_lev, t_sfc,
-                                    sfc_lay=nlay - 1, pfrac=pfrac)
+        with _stage("lw_gas_optics"):
+            if lm:
+                tau, pfrac = (a.reshape(nlay * ncol, g1 - g0) for a in
+                              gas_ops.tau_majmin_and_pfrac(kdc, *lm_in))
+            else:
+                tau, pfrac = gas_ops.tau_majmin_and_pfrac(
+                    kdc, interp, p_lay, t_lay, col_gas, cellw=cellw)
+        with _stage("lw_planck"):
+            if lm:
+                src = gas_ops.planck_source_lm(
+                    kdc, t_lay, t_lev, t_sfc, sfc_lay=nlay - 1,
+                    pfrac_lm=pfrac, ncol=ncol)
+            else:
+                src = gas_ops.planck_source(kdc, interp, t_lay, t_lev, t_sfc,
+                                            sfc_lay=nlay - 1, pfrac=pfrac)
         if with_clouds:
-            tau = tau + flux_ops.expand_bands_to_gpt(cld.tau, kdc.gpt2band)
+            with _stage("lw_cloud_add"):
+                tau = tau + flux_ops.expand_bands_to_gpt(cld_tau,
+                                                         kdc.gpt2band)
         if output_optical:
             optical["lw_tau"].append(tau)
             optical["lay_source"].append(src.lay_src)
@@ -148,39 +178,49 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
         if not with_fluxes:
             continue
 
-        emis_gpt = flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band)
-        inc = new(ncol, g1 - g0)
-        sources = (src.lay_src, src.lev_src, emis_gpt,
-                   src.sfc_src.contiguous(), src.sfc_src_jac.contiguous(), inc)
-        if not output_bnd_fluxes:
-            # Broadband only: the sweep kernel sums over g-points itself and
-            # never materializes (ncol, nlev, ngpt).
-            up_bb, dn_bb, _ = rte_lw.lw_solver_noscat_broadband(
-                tau, *sources, n_gauss_angles=n_gauss_angles)
-            flux_up = flux_up + up_bb
-            flux_dn = flux_dn + dn_bb
-            continue
-        up, dn, _ = rte_lw.lw_solver_noscat(tau, *sources,
-                                            n_gauss_angles=n_gauss_angles)
-        flux_up = flux_up + flux_ops.sum_broadband(up)
-        flux_dn = flux_dn + flux_ops.sum_broadband(dn)
-        bnd_up = bnd_up + flux_ops.sum_byband(up, kdc.gpt2band, nbnd)
-        bnd_dn = bnd_dn + flux_ops.sum_byband(dn, kdc.gpt2band, nbnd)
+        with _stage("lw_solve"):
+            emis_gpt = flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band)
+            inc = new(ncol, g1 - g0)
+            if lm:
+                up, dn, _ = rte_lw.lw_solver_noscat_broadband_lm(
+                    tau, src.lay_src, src.lev_src, emis_gpt, src.sfc_src,
+                    src.sfc_src_jac, inc, ncol=ncol,
+                    n_gauss_angles=n_gauss_angles)
+            else:
+                sources = (src.lay_src, src.lev_src, emis_gpt,
+                           src.sfc_src.contiguous(),
+                           src.sfc_src_jac.contiguous(), inc)
+                # Broadband only: the sweep kernel sums over g-points itself
+                # and never materializes (ncol, nlev, ngpt).
+                solver = (rte_lw.lw_solver_noscat if output_bnd_fluxes
+                          else rte_lw.lw_solver_noscat_broadband)
+                up, dn, _ = solver(tau, *sources,
+                                   n_gauss_angles=n_gauss_angles)
+        with _stage("lw_fluxes"):
+            if not output_bnd_fluxes:
+                flux_up = flux_up + up
+                flux_dn = flux_dn + dn
+                continue
+            flux_up = flux_up + flux_ops.sum_broadband(up)
+            flux_dn = flux_dn + flux_ops.sum_broadband(dn)
+            bnd_up = bnd_up + flux_ops.sum_byband(up, kdc.gpt2band, nbnd)
+            bnd_dn = bnd_dn + flux_ops.sum_byband(dn, kdc.gpt2band, nbnd)
 
-    out = {}
-    if with_fluxes:
-        out.update(lw_flux_up=flux_up, lw_flux_dn=flux_dn,
-                   lw_flux_net=flux_dn - flux_up)
-    if output_bnd_fluxes:
-        out.update(lw_bnd_flux_up=bnd_up, lw_bnd_flux_dn=bnd_dn,
-                   lw_bnd_flux_net=bnd_dn - bnd_up)
-    if output_optical:
-        out.update({k: torch.cat(v, dim=-1) for k, v in optical.items()})
-    if not top_at_1:
-        # Flip back everything with a vertical axis 1 (sfc_source is
-        # (ncol, ngpt) — no vertical axis).
-        out = {k: (v if k == "sfc_source" else _flip_lay(v))
-               for k, v in out.items()}
+    with _stage("lw_fluxes"):
+        out = {}
+        if with_fluxes:
+            out.update(lw_flux_up=flux_up, lw_flux_dn=flux_dn,
+                       lw_flux_net=flux_dn - flux_up)
+        if output_bnd_fluxes:
+            out.update(lw_bnd_flux_up=bnd_up, lw_bnd_flux_dn=bnd_dn,
+                       lw_bnd_flux_net=bnd_dn - bnd_up)
+        if output_optical:
+            out.update({k: torch.cat(v, dim=-1) for k, v in optical.items()})
+        if not top_at_1:
+            # Flip back everything with a vertical axis 1 (sfc_source is
+            # (ncol, ngpt) — no vertical axis).
+            out = {k: (v if k == "sfc_source" else _flip_lay(v))
+                   for k, v in out.items()}
     return out
 
 
@@ -194,119 +234,135 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                    output_optical: bool = False, with_fluxes: bool = True,
                    cellw: Optional[bool] = None,
                    layer_major: Optional[bool] = None):
-    if not top_at_1:
-        p_lay, t_lay, vmr, col_dry = map(_flip_lay, (p_lay, t_lay, vmr, col_dry))
-        p_lev = _flip_lay(p_lev)
-        if with_clouds:
-            lwp, iwp, rel, dei = map(_flip_lay, (lwp, iwp, rel, dei))
-        if with_aerosols:
-            rh, aermr = map(_flip_lay, (rh, aermr))
+    with _stage("sw_inputs"):
+        if not top_at_1:
+            p_lay, t_lay, vmr, col_dry = map(_flip_lay,
+                                             (p_lay, t_lay, vmr, col_dry))
+            p_lev = _flip_lay(p_lev)
+            if with_clouds:
+                lwp, iwp, rel, dei = map(_flip_lay, (lwp, iwp, rel, dei))
+            if with_aerosols:
+                rh, aermr = map(_flip_lay, (rh, aermr))
+        # Night columns would produce NaNs in exp(-tau/mu0); compute them
+        # with a safe mu0 and zero their fluxes at the end.
+        mu0_safe = torch.where(mu0 > 0.0, mu0, 1.0).contiguous()
     ncol, nlay = p_lay.shape
     nlev = nlay + 1
     nbnd = kd.nbnd
     dtype = p_lay.dtype
 
-    col_gas = gas_ops.build_col_gas(vmr, col_dry)
-    # Night columns would produce NaNs in exp(-tau/mu0); compute them with a
-    # safe mu0 and zero their fluxes at the end.
-    mu0_safe = torch.where(mu0 > 0.0, mu0, 1.0).contiguous()
+    with _stage("sw_col_gas"):
+        col_gas = gas_ops.build_col_gas(vmr, col_dry)
 
     cld = aer = None
     if with_clouds:
-        cld = cloud_ops.cloud_optics_2str(cloud_lut, lwp, iwp, rel, dei)
-        if delta_cloud:
-            cld = optics_ops.delta_scale(cld)
+        with _stage("sw_cloud_optics"):
+            cld = cloud_ops.cloud_optics_2str(cloud_lut, lwp, iwp, rel, dei)
+            if delta_cloud:
+                cld = optics_ops.delta_scale(cld)
     if with_aerosols:
-        aer = aero_ops.aerosol_optics_2str(aerosol_lut, aermr, rh, p_lev)
-        if delta_aerosol:
-            aer = optics_ops.delta_scale(aer)
+        with _stage("sw_aerosol_optics"):
+            aer = aero_ops.aerosol_optics_2str(aerosol_lut, aermr, rh, p_lev)
+            if delta_aerosol:
+                aer = optics_ops.delta_scale(aer)
 
     new = lambda *shape: torch.zeros(shape, dtype=dtype, device=p_lay.device)
-    flux_up, flux_dn, flux_dir = new(ncol, nlev), new(ncol, nlev), new(ncol, nlev)
-    bnd = ({k: new(ncol, nlev, nbnd) for k in ("up", "dn", "dir")}
-           if output_bnd_fluxes else None)
+    with _stage("sw_fluxes"):
+        flux_up, flux_dn, flux_dir = (new(ncol, nlev), new(ncol, nlev),
+                                      new(ncol, nlev))
+        bnd = ({k: new(ncol, nlev, nbnd) for k in ("up", "dn", "dir")}
+               if output_bnd_fluxes else None)
 
-    interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
+    with _stage("sw_interpolation"):
+        interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("sw_tau", "ssa", "g", "toa_source")} \
         if output_optical else None
     cellw, lm = _layouts(kd, cellw, layer_major, with_fluxes
                          and not output_bnd_fluxes and not output_optical)
     if lm:
-        lm_in = tuple(map(gas_ops.layer_major,
-                          (interp, p_lay, t_lay, col_gas, col_dry)))
-        to_lm2 = lambda o: optics_ops.OpticalProps2str(
-            tau=gas_ops._cells(o.tau, "lm"), ssa=gas_ops._cells(o.ssa, "lm"),
-            g=gas_ops._cells(o.g, "lm"))
-        cld = to_lm2(cld) if with_clouds else cld
-        aer = to_lm2(aer) if with_aerosols else aer
+        with _stage("sw_layer_major"):
+            lm_in = tuple(map(gas_ops.layer_major,
+                              (interp, p_lay, t_lay, col_gas, col_dry)))
+            to_lm2 = lambda o: optics_ops.OpticalProps2str(
+                tau=gas_ops._cells(o.tau, "lm"),
+                ssa=gas_ops._cells(o.ssa, "lm"), g=gas_ops._cells(o.g, "lm"))
+            cld = to_lm2(cld) if with_clouds else cld
+            aer = to_lm2(aer) if with_aerosols else aer
 
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
-        if lm:
-            tau_abs, tau_ray = (a.reshape(nlay * ncol, g1 - g0) for a in
-                                gas_ops.tau_majmin_and_rayleigh(kdc, *lm_in))
-        else:
-            tau_abs, tau_ray = gas_ops.tau_majmin_and_rayleigh(
-                kdc, interp, p_lay, t_lay, col_gas, col_dry, cellw=cellw)
-        tau, ssa, g = gas_ops.combine_abs_and_rayleigh(tau_abs, tau_ray)
-        op = optics_ops.OpticalProps2str(tau=tau, ssa=ssa, g=g)
+        with _stage("sw_gas_optics"):
+            if lm:
+                tau_abs, tau_ray = (a.reshape(nlay * ncol, g1 - g0) for a in
+                                    gas_ops.tau_majmin_and_rayleigh(kdc, *lm_in))
+            else:
+                tau_abs, tau_ray = gas_ops.tau_majmin_and_rayleigh(
+                    kdc, interp, p_lay, t_lay, col_gas, col_dry, cellw=cellw)
+        with _stage("sw_combine"):
+            tau, ssa, g = gas_ops.combine_abs_and_rayleigh(tau_abs, tau_ray)
+            op = optics_ops.OpticalProps2str(tau=tau, ssa=ssa, g=g)
         if with_clouds:
-            op = optics_ops.increment_2str_by_2str_bybnd(op, cld, kdc.gpt2band)
+            with _stage("sw_cloud_increment"):
+                op = optics_ops.increment_2str_by_2str_bybnd(op, cld,
+                                                             kdc.gpt2band)
         if with_aerosols:
-            op = optics_ops.increment_2str_by_2str_bybnd(op, aer, kdc.gpt2band)
+            with _stage("sw_aerosol_increment"):
+                op = optics_ops.increment_2str_by_2str_bybnd(op, aer,
+                                                             kdc.gpt2band)
 
-        toa = (kdc.solar_source[None, :] * tsi_scaling[:, None]).to(dtype)
+        with _stage("sw_solve"):
+            toa = (kdc.solar_source[None, :] * tsi_scaling[:, None]).to(dtype)
+            if output_optical:
+                optical["sw_tau"].append(op.tau)
+                optical["ssa"].append(op.ssa)
+                optical["g"].append(op.g)
+                optical["toa_source"].append(toa)
+            if not with_fluxes:
+                continue
+            alb_dir = flux_ops.expand_bands_to_gpt(sfc_alb_dir, kdc.gpt2band)
+            alb_dif = flux_ops.expand_bands_to_gpt(sfc_alb_dif, kdc.gpt2band)
+            if lm:
+                up, dn, fdir = rte_sw.sw_solver_2stream_broadband_lm(
+                    op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa,
+                    ncol=ncol)
+            else:
+                solver = (rte_sw.sw_solver_2stream if output_bnd_fluxes
+                          else rte_sw.sw_solver_2stream_broadband)
+                up, dn, fdir = solver(op.tau, op.ssa, op.g, mu0_safe,
+                                      alb_dir, alb_dif, toa)
+        with _stage("sw_fluxes"):
+            if not output_bnd_fluxes:
+                flux_up = flux_up + up
+                flux_dn = flux_dn + dn
+                flux_dir = flux_dir + fdir
+                continue
+            flux_up = flux_up + flux_ops.sum_broadband(up)
+            flux_dn = flux_dn + flux_ops.sum_broadband(dn)
+            flux_dir = flux_dir + flux_ops.sum_broadband(fdir)
+            bnd["up"] = bnd["up"] + flux_ops.sum_byband(up, kdc.gpt2band, nbnd)
+            bnd["dn"] = bnd["dn"] + flux_ops.sum_byband(dn, kdc.gpt2band, nbnd)
+            bnd["dir"] = bnd["dir"] + flux_ops.sum_byband(fdir, kdc.gpt2band,
+                                                          nbnd)
+
+    with _stage("sw_fluxes"):
+        # Night columns (mu0 <= 0) get zero SW fluxes.
+        day = (mu0 > 0.0).to(dtype)[:, None]
+        out = {}
+        if with_fluxes:
+            out.update(sw_flux_up=flux_up * day, sw_flux_dn=flux_dn * day,
+                       sw_flux_dn_dir=flux_dir * day,
+                       sw_flux_net=(flux_dn - flux_up) * day)
+        if output_bnd_fluxes:
+            d3 = day[:, :, None]
+            out.update(sw_bnd_flux_up=bnd["up"] * d3,
+                       sw_bnd_flux_dn=bnd["dn"] * d3,
+                       sw_bnd_flux_dn_dir=bnd["dir"] * d3,
+                       sw_bnd_flux_net=(bnd["dn"] - bnd["up"]) * d3)
         if output_optical:
-            optical["sw_tau"].append(op.tau)
-            optical["ssa"].append(op.ssa)
-            optical["g"].append(op.g)
-            optical["toa_source"].append(toa)
-        if not with_fluxes:
-            continue
-        alb_dir = flux_ops.expand_bands_to_gpt(sfc_alb_dir, kdc.gpt2band)
-        alb_dif = flux_ops.expand_bands_to_gpt(sfc_alb_dif, kdc.gpt2band)
-
-        if lm:
-            up_bb, dn_bb, dir_bb = rte_sw.sw_solver_2stream_broadband_lm(
-                op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa,
-                ncol=ncol)
-            flux_up = flux_up + up_bb
-            flux_dn = flux_dn + dn_bb
-            flux_dir = flux_dir + dir_bb
-            continue
-        if not output_bnd_fluxes:
-            up_bb, dn_bb, dir_bb = rte_sw.sw_solver_2stream_broadband(
-                op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa)
-            flux_up = flux_up + up_bb
-            flux_dn = flux_dn + dn_bb
-            flux_dir = flux_dir + dir_bb
-            continue
-        up, dn, fdir = rte_sw.sw_solver_2stream(
-            op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa)
-        flux_up = flux_up + flux_ops.sum_broadband(up)
-        flux_dn = flux_dn + flux_ops.sum_broadband(dn)
-        flux_dir = flux_dir + flux_ops.sum_broadband(fdir)
-        bnd["up"] = bnd["up"] + flux_ops.sum_byband(up, kdc.gpt2band, nbnd)
-        bnd["dn"] = bnd["dn"] + flux_ops.sum_byband(dn, kdc.gpt2band, nbnd)
-        bnd["dir"] = bnd["dir"] + flux_ops.sum_byband(fdir, kdc.gpt2band, nbnd)
-
-    # Night columns (mu0 <= 0) get zero SW fluxes.
-    day = (mu0 > 0.0).to(dtype)[:, None]
-    out = {}
-    if with_fluxes:
-        out.update(sw_flux_up=flux_up * day, sw_flux_dn=flux_dn * day,
-                   sw_flux_dn_dir=flux_dir * day,
-                   sw_flux_net=(flux_dn - flux_up) * day)
-    if output_bnd_fluxes:
-        d3 = day[:, :, None]
-        out.update(sw_bnd_flux_up=bnd["up"] * d3, sw_bnd_flux_dn=bnd["dn"] * d3,
-                   sw_bnd_flux_dn_dir=bnd["dir"] * d3,
-                   sw_bnd_flux_net=(bnd["dn"] - bnd["up"]) * d3)
-    if output_optical:
-        out.update({k: torch.cat(v, dim=-1) for k, v in optical.items()})
-    if not top_at_1:
-        out = {k: (v if k == "toa_source" else _flip_lay(v))
-               for k, v in out.items()}
+            out.update({k: torch.cat(v, dim=-1) for k, v in optical.items()})
+        if not top_at_1:
+            out = {k: (v if k == "toa_source" else _flip_lay(v))
+                   for k, v in out.items()}
     return out
 
 

@@ -12,8 +12,9 @@ dimension gets a variable of its own only where a caller writes one.
 
 Classic NetCDF has no groups either, and a classic name may not contain
 ``/``.  A group's variables are stored there under the prefixed name
-``<group>.<variable>`` (``camera-settings.px``); :meth:`NcReader.group`
-reads that form from a classic file and the HDF5 group of a NetCDF4 file.
+``<group>.<variable>`` (``camera-settings.px``); :meth:`NcWriter.group`
+writes that form and :meth:`NcReader.group` reads it from a classic file
+and the HDF5 group of a NetCDF4 file.
 """
 
 from __future__ import annotations
@@ -250,6 +251,7 @@ class NcWriter:
             os.remove(path)
         self._nc = netcdf_file(path, "w", version=2)
         self._dims: Dict[str, int] = {}
+        self._prefix = ""
 
     def def_dim(self, name: str, size: int):
         if name in self._dims:
@@ -267,7 +269,8 @@ class NcWriter:
             raise ValueError(f"{name}: {data.shape} vs dims {tuple(dims)}")
         for d, s in zip(dims, data.shape):
             self.def_dim(d, s)
-        var = self._nc.createVariable(name, data.dtype, tuple(dims))
+        var = self._nc.createVariable(self._prefix + name, data.dtype,
+                                      tuple(dims))
         var[...] = data
         for k, v in (attrs or {}).items():
             setattr(var, k, v)
@@ -285,8 +288,20 @@ class NcWriter:
             arr[i, :len(b)] = np.frombuffer(b, dtype="S1")
         self.write(name, arr, (dim, "string_len"))
 
+    def group(self, name: str) -> "NcWriter":
+        """A writer of group ``name`` in the same file: its variables are
+        stored as ``<name>.<variable>`` (the classic form
+        :meth:`NcReader.group` reads).  A classic file has one set of
+        dimensions, shared with the group.  Closing the group closes
+        nothing; close the file's writer."""
+        sub = object.__new__(NcWriter)
+        sub._nc, sub._dims = self._nc, self._dims
+        sub._prefix = self._prefix + name + GROUP_SEP
+        return sub
+
     def close(self):
-        self._nc.close()
+        if not self._prefix:
+            self._nc.close()
 
     def __enter__(self):
         return self

@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``rte_rrtmgp_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the package imports
+``chip_smoke.py``) imports JAX, the JAX package or the repository's root
+``tools/`` (the JAX package's drivers), and the package imports
 on CPU-only PyTorch without ``nvcc`` or ``triton`` (kernels build lazily,
 inside the first CUDA call)."""
 
@@ -13,7 +14,7 @@ import pytest
 import torch  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "rte_rrtmgp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "rte_rrtmgp_tpu", "tools")
 
 
 def _port_files():
@@ -83,3 +84,12 @@ def test_parallel_modules_are_checked():
                 "parallel/sharded.py", "parallel/distributed.py",
                 "tools/multihost_smoke.py"):
         assert "rte_rrtmgp_torch/" + mod in names, mod
+
+
+def test_tool_modules_are_checked():
+    """The tools around the main path and the goldens generator are among
+    the files held to no JAX and no root-``tools`` import above."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("profile_stages", "ablate", "crosscheck", "bench_rt_solve",
+                "scaling_bench", "plot_fluxes", "make_goldens"):
+        assert f"rte_rrtmgp_torch/tools/{mod}.py" in names, mod

@@ -13,8 +13,9 @@ no launch), the forward and camera tracers against the CPU (statistical),
 camera solver in float64 through the twins (no launch), the gradient guard
 (a float32 input that requires grad raises; float64 differentiates as on
 the CPU), B1-B3 launched on ``cuda:1`` while ``cuda:0`` is current (skipped
-with fewer than two cards), and the step sharded on a mesh that lists the
-card 4 times."""
+with fewer than two cards), the step sharded on a mesh that lists the
+card 4 times, and ``tools/crosscheck``'s aerosky case (the aerosol optics
+on the card)."""
 
 import json
 import os
@@ -36,7 +37,7 @@ from rte_rrtmgp_torch.models import (AerosolLUT, CloudLUT, KDist,
                                      RadiationSolverLW, RadiationSolverSW,
                                      raytracer, raytracer_bw)
 from rte_rrtmgp_torch.models.radiation_bw import RadiationSolverBW
-from rte_rrtmgp_torch.tools import set_virtual_camera
+from rte_rrtmgp_torch.tools import crosscheck, set_virtual_camera
 from rte_rrtmgp_torch.utils import ncio, tuner
 
 pytestmark = pytest.mark.gpu
@@ -753,6 +754,23 @@ def test_cli_on_card_launches_kernels_and_matches_cpu(cuda, tmp_path,
             err = np.abs(x - y).max()
             tol = 0.1 if v in fluxes else REL * np.abs(y).max()
             assert err <= tol, (v, err, tol)
+
+
+def test_crosscheck_aerosky_on_card(cuda, tmp_path, monkeypatch):
+    """``tools/crosscheck``'s aerosky case (clouds and aerosols, both
+    delta-scaled, ``gpt_per_band`` 8, ``gpt_chunk`` 64, default layout):
+    the card's float32 fluxes within 0.7 W m-2 of the CPU's float32, B1 4,
+    B2 2 and B3 2 launches on the card (two chunks a spectrum), none on
+    the CPU."""
+    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
+    monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "0")
+    res = crosscheck.run(str(tmp_path), device=cuda, cases=("aerosky",))
+    r = res["aerosky"]
+    assert res["ok"] and r["ok"]
+    assert max(r["dev_vs_cpu_f32"].values()) <= crosscheck.GATE_WM2
+    assert len(r["dev_vs_cpu_f32"]) == 7
+    assert r["launches"] == {"cpu_f64": {}, "cpu_f32": {}, "dev_f32": {
+        "gas_optics_interp": 4, "lw_sweep": 2, "sw_2stream": 2}}
 
 
 def test_ncio_round_trip_on_card_machine(cuda, tmp_path):

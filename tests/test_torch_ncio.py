@@ -258,3 +258,44 @@ def test_group_convention(tmp_path, monkeypatch, form):
         assert top == {"t", "sza", "azi"} | _dim_scales(path)
         with JNcReader(path) as jr:
             assert jr.group("camera-settings").read_scalar("px") == 13.0
+
+
+def test_writer_group_round_trip(tmp_path, monkeypatch):
+    """``NcWriter.group`` writes a group's variables as ``<group>.<name>``
+    (nested groups as ``a.b.name``, the file's dimensions shared), which
+    ``NcReader.group`` reads without ``h5py`` as it reads the HDF5 group
+    the JAX package's ``NcWriter.group`` writes."""
+    from rte_rrtmgp_tpu.utils.ncio import NcWriter as JNcWriter
+
+    v = np.linspace(0.0, 1.0, 4)
+    paths = {"port": str(tmp_path / "p.nc"), "jax": str(tmp_path / "j.nc")}
+    for kind, writer in (("port", ncio.NcWriter), ("jax", JNcWriter)):
+        with writer(paths[kind]) as w:
+            w.write("t", np.arange(4.0), ("x",))
+            g = w.group("camera-settings")
+            g.write_scalar("px", 12.5)
+            g.write("v", v, ("x",))
+            g.close()
+    with ncio.NcReader(paths["port"]) as nc:
+        assert sorted(nc.variables()) == ["camera-settings.px",
+                                          "camera-settings.v", "t"]
+    monkeypatch.setattr(ncio, "h5py", None)
+    with ncio.NcReader(paths["port"]) as nc:
+        grp = nc.group("camera-settings")
+        assert sorted(grp.variables()) == ["px", "v"]
+        assert grp.read_scalar("px") == 12.5
+        np.testing.assert_array_equal(grp.read("v"), v)
+        np.testing.assert_array_equal(nc.read("t"), np.arange(4.0))
+    monkeypatch.undo()
+    with ncio.NcReader(paths["jax"]) as nc:
+        grp = nc.group("camera-settings")
+        assert grp.read_scalar("px") == 12.5
+        np.testing.assert_array_equal(grp.read("v"), v)
+    nested = str(tmp_path / "n.nc")
+    with ncio.NcWriter(nested) as w:
+        w.group("a").group("b").write_scalar("q", 2.0)
+        with pytest.raises(ValueError, match="redefined"):
+            w.write("t", np.arange(3.0), ("x",))
+            w.group("a").write("u", np.arange(5.0), ("x",))
+    with ncio.NcReader(nested) as nc:
+        assert nc.group("a").read_scalar("b.q") == 2.0

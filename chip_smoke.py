@@ -1698,8 +1698,7 @@ def main(argv) -> int:
 
     # Every wrapper (module, name) and its plain twin, same signature.
     wrappers = {
-        "gas_optics_interp": (k_interp, lambda kd, interp, sc, rayleigh:
-                              go.majmin_plain(kd, interp, sc, rayleigh)),
+        "gas_optics_interp": (k_interp, go.majmin_cells_plain),
         "interp_rows_multi": (k_rows, go.interp_rows_plain),
         "interp_rows": (k_rows, lambda table, rows, jes, fms, fp=None,
                         cms=None: go.interp_rows_plain(
@@ -1742,7 +1741,7 @@ def main(argv) -> int:
         return calls
 
     def interp_call(a, kw):
-        kd, interp, sc = a
+        kd, interp, play, tlay, col_gas = a
         rayleigh = kw["rayleigh"]
         tab_b = kd.krayl_rows if rayleigh else kd.planck_rows
         C, L = interp.tropo.shape
@@ -1750,7 +1749,7 @@ def main(argv) -> int:
         specs = go.minor_specs(kd)
         in_b = nbytes(kd.kmajor_rows, tab_b, interp.jtemp0, interp.jpress0,
                       interp.itropo01, interp.jeta0, interp.col_mix,
-                      interp.fminor, interp.fmajor, sc)
+                      interp.fminor, interp.fmajor, play, tlay, col_gas)
         if specs:
             in_b += nbytes(kd.kminor_lower_trows, kd.kminor_upper_trows)
         out_b = 2 * C * L * G * 4
@@ -1761,14 +1760,14 @@ def main(argv) -> int:
         contrib = sum((s.gpt_end - s.gpt_start) * (n_up if atm else n_lo)
                       for atm, s in specs)
         ops = C * L * G * (20 + (8 if rayleigh else 17)) + 9 * contrib
-        kern = lambda: k_interp.gas_optics_interp(kd, interp, sc,
-                                                  rayleigh=rayleigh)
-        plain = lambda: go.majmin_plain(kd, interp, sc, rayleigh)
+        kern = lambda: k_interp.gas_optics_interp(*a, rayleigh=rayleigh)
+        plain = lambda: go.majmin_cells_plain(*a, rayleigh)
         label = (f"{'SW' if rayleigh else 'LW'} {C}x{L} G={G} "
                  f"minor={len(specs)}")
         nent = k_interp._minor_entries(tuple(specs), G, dev)[2]
         geo = k_interp.interp_geometry(C, L, G, kd.nflav, len(specs), nent,
-                                       k_interp.TILE_CELLS, k_interp.THREADS)
+                                       col_gas.shape[-1], k_interp.TILE_CELLS,
+                                       k_interp.THREADS)
         return label, kern, plain, in_b + out_b, ops, geo.describe()
 
     def rows_ops(rows_list, cms_list):

@@ -9,7 +9,10 @@
 //   out_a = sum_itemp col_mix * sum_press sum_eta fmajor * kmajor      (tau)
 //         + sum over the minor intervals covering g of ltau * sc
 //   out_b = the same 4-corner sum on planck_rows without col_mix  (LW), or
-//           2 temperature x 2 eta corners on krayl_rows           (SW).
+//           2 temperature x 2 eta corners on krayl_rows times the cell's
+//           Rayleigh column (col_gas[h2o] + col_gas[0])            (SW),
+// where sc, each minor interval's scaling (reference :494-519), comes from
+// the cell's pressure, temperature and column amounts.
 //
 // What bounds it on the H100: bytes by count (the two (N, G) output planes,
 // 75.5 MB each at 2048x72x128, and the per-cell weights), but in practice
@@ -24,11 +27,14 @@
 // the layer-major (nlay, ncol) one.  Cells of one layer have nearly the
 // same pressure and temperature rows and eta indices, so a block's table
 // reads fall on a few rows that L1 serves again.
-//   * The cells' scalars (itropo, jtemp, jpress), their per-(cell, flavor)
-//     weights (jeta, col_mix, fmajor, fminor) and minor scalings, the
-//     chunk's g-point flavors and its minor entry list go into shared
-//     memory once a block, in coalesced cp.async copies that are all in
-//     flight at once.
+//   * The cells' scalars (itropo, jtemp, jpress, play, tlay), their
+//     per-(cell, flavor) weights (jeta, col_mix, fmajor, fminor) and column
+//     amounts (col_gas), the chunk's g-point flavors, its minor entry list
+//     and its interval descriptors go into shared memory once a block, in
+//     coalesced cp.async copies that are all in flight at once.  Then the
+//     block computes each cell's scaling of each interval of the cell's
+//     atmosphere into shared memory (the other atmosphere's intervals are
+//     never read), so no (N, nspec) scaling tensor exists.
 //   * A thread computes four consecutive g-points with 16-byte table loads
 //     and output stores where the four share a flavor and the tables and
 //     outputs allow it (strides multiples of 4, 16-byte aligned, G a
@@ -42,12 +48,15 @@
 //   * Indexing: one 64-bit base per cell; table offsets and everything
 //     inside the block are 32-bit (the wrapper checks the tables' extent);
 //     no 64-bit division anywhere.
-//   * Operation order: the plain twin's (gas_optics.majmin_plain), so the
-//     kernel equals its twin bit for bit (with --fmad=false): the major
-//     sums per temperature corner, col_mix, then the minor intervals of the
-//     cell's atmosphere in interval order (lower then upper).
+//   * Operation order: the plain twin's (gas_optics.majmin_cells_plain:
+//     minor_scaling, majmin_plain, the Rayleigh factor), so the kernel
+//     equals its twin bit for bit (with --fmad=false and IEEE division):
+//     the major sums per temperature corner, col_mix, then the minor
+//     intervals of the cell's atmosphere in interval order (lower then
+//     upper).
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
@@ -98,7 +107,49 @@ struct Tables {
     const float* kmin_up;
     int ncont_up;
     int ntemp, neta, F;
+    int h2o;            // col_gas index of water vapour
 };
+
+// Columns of a minor-interval descriptor row (gas_optics_interp.py
+// _minor_desc): atmosphere 0 lower / 1 upper, col_gas index of the
+// absorber and of the scaling gas (0: none), scales with density, scale by
+// the complement.
+constexpr int DESC = 5;
+
+// A cell's factors of gas_optics._spec_scaling, the same for each of its
+// intervals: the density factor 0.01 play / tlay, and vmr_fact and
+// dry_fact of the scaling gas.  The dry column is floored at FLT_MIN
+// (config.tiny), so that a layer with col_dry == 0 gives no NaN.
+struct CellScale {
+    float density, vmr_fact, dry_fact;
+};
+
+__device__ __forceinline__ CellScale cell_scale(const float* cg, float play,
+                                                float tlay, int h2o)
+{
+    CellScale f;
+    f.density = (0.01f * play) / tlay;
+    f.vmr_fact = 1.0f / (cg[0] < FLT_MIN ? FLT_MIN : cg[0]);
+    f.dry_fact = 1.0f / (1.0f + cg[h2o] * f.vmr_fact);
+    return f;
+}
+
+// The scaling of one minor interval (descriptor row d) in one cell:
+// gas_optics._spec_scaling in its float32 operations and order (the
+// atmosphere mask, 1 in the cell's own atmosphere, leaves it unchanged).
+__device__ __forceinline__ float minor_scale(const int* d, const float* cg,
+                                             const CellScale& f)
+{
+    float s = cg[d[1]];
+    if (d[3]) {
+        s = s * f.density;
+        if (d[2] > 0) {
+            const float sx = cg[d[2]] * f.vmr_fact * f.dry_fact;
+            s = s * (d[4] ? 1.0f - sx : sx);
+        }
+    }
+    return s;
+}
 
 // The major gases of VW consecutive g-points from g that share flavor f.
 template <int VW>
@@ -263,7 +314,9 @@ __global__ void gas_optics_interp_kernel(
     const int* __restrict__ itropo01, const int* __restrict__ jeta0,
     const float* __restrict__ col_mix, const float* __restrict__ fminor,
     const float* __restrict__ fmajor, const int* __restrict__ gflav,
-    const float* __restrict__ sc, int nspec,
+    const float* __restrict__ play, const float* __restrict__ tlay,
+    const float* __restrict__ col_gas, int ngc,
+    const int* __restrict__ desc, int nspec,
     const int* __restrict__ ent_off, const int* __restrict__ ent, int nent,
     const int* __restrict__ quad_minor, float* __restrict__ out_a,
     float* __restrict__ out_b, int C, int L, int G, int axis, int tc,
@@ -292,11 +345,15 @@ __global__ void gas_optics_interp_kernel(
     float* const fmaj_s = cm_s + tc * 2 * F;
     float* const fmin_s = fmaj_s + tc * 8 * F;
     float* const sc_s = fmin_s + tc * 4 * F;
-    int* const gf_s = reinterpret_cast<int*>(sc_s + tc * nspec);
+    float* const pl_s = sc_s + tc * nspec;
+    float* const tl_s = pl_s + tc;
+    float* const cg_s = tl_s + tc;
+    int* const gf_s = reinterpret_cast<int*>(cg_s + tc * ngc);
     int* const qf_s = gf_s + 2 * G;
     int* const qm_s = qf_s + 2 * nq;
     int* const eoff_s = qm_s + nq;
     int* const ent_s = eoff_s + G + 1;
+    int* const desc_s = ent_s + 4 * nent;
 
     stage(it_s, itropo01, 1, n0, sa, ncell);
     stage(jt_s, jtemp0, 1, n0, sa, ncell);
@@ -305,7 +362,9 @@ __global__ void gas_optics_interp_kernel(
     stage(cm_s, col_mix, 2 * F, n0, sa, ncell);
     stage(fmaj_s, fmajor, 8 * F, n0, sa, ncell);
     stage(fmin_s, fminor, 4 * F, n0, sa, ncell);
-    stage(sc_s, sc, nspec, n0, sa, ncell);
+    stage(pl_s, play, 1, n0, sa, ncell);
+    stage(tl_s, tlay, 1, n0, sa, ncell);
+    stage(cg_s, col_gas, ngc, n0, sa, ncell);
     for (int i = threadIdx.x; i < 2 * G; i += blockDim.x)
         cp_async4(gf_s + i, gflav + i);
     for (int i = threadIdx.x; i < nq; i += blockDim.x)
@@ -314,6 +373,8 @@ __global__ void gas_optics_interp_kernel(
         cp_async4(eoff_s + i, ent_off + i);
     for (int i = threadIdx.x; i < 4 * nent; i += blockDim.x)
         cp_async4(ent_s + i, ent + i);
+    for (int i = threadIdx.x; i < DESC * nspec; i += blockDim.x)
+        cp_async4(desc_s + i, desc + i);
     // Flavor of each aligned quad of g-points in each atmosphere, or -1
     // where the quad is ragged, mixed or the vector path is off.
     for (int i = threadIdx.x; i < 2 * nq; i += blockDim.x) {
@@ -330,6 +391,25 @@ __global__ void gas_optics_interp_kernel(
                  ::: "memory");
     __syncthreads();
 
+    // Each cell's scaling of each minor interval of its own atmosphere: a
+    // lane takes a cell and its factors, a warp an interval (one
+    // descriptor row read by the whole warp; no division in the loop).
+    if (nspec > 0) {
+        const int lane = threadIdx.x & 31;
+        const int nwarp = blockDim.x >> 5;
+        for (int k = lane; k < ncell; k += 32) {
+            const float* cg = cg_s + k * ngc;
+            const CellScale f = cell_scale(cg, pl_s[k], tl_s[k], t.h2o);
+            const int it = it_s[k];
+            for (int j = threadIdx.x >> 5; j < nspec; j += nwarp) {
+                const int* d = desc_s + DESC * j;
+                sc_s[k * nspec + j] = d[0] == it ? minor_scale(d, cg, f)
+                                                 : 0.0f;
+            }
+        }
+        __syncthreads();
+    }
+
     for (int w = threadIdx.x; w < ncell * nq; w += blockDim.x) {
         const int k = w / nq;
         const int g = (w - k * nq) * 4;
@@ -342,6 +422,7 @@ __global__ void gas_optics_interp_kernel(
         x.fmaj = fmaj_s + k * 8 * F;
         x.fmin = fmin_s + k * 4 * F;
         x.sc = sc_s + k * nspec;
+        const float* cg = cg_s + k * ngc;
         const long long row = (n0 + k * sa) * G + g;
         const int f4 = qf_s[x.it * nq + (g >> 2)];
         if (f4 >= 0) {
@@ -354,6 +435,13 @@ __global__ void gas_optics_interp_kernel(
                 for (int v = 0; v < 4; ++v)
                     tau[v] = add_minor(t, x, eoff_s, ent_s, g + v, tau[v]);
             }
+            if (t.rayleigh) {
+                // The Rayleigh column: h2o plus the dry column.
+                const float fac = cg[t.h2o] + cg[0];
+                #pragma unroll
+                for (int v = 0; v < 4; ++v)
+                    second[v] = second[v] * fac;
+            }
             store<4>(out_a + row, tau);
             store<4>(out_b + row, second);
         } else {
@@ -362,7 +450,8 @@ __global__ void gas_optics_interp_kernel(
                 major<1>(t, x, gf_s[x.it * G + g + v], g + v, tau, second);
                 tau[0] = add_minor(t, x, eoff_s, ent_s, g + v, tau[0]);
                 out_a[row + v] = tau[0];
-                out_b[row + v] = second[0];
+                out_b[row + v] = t.rayleigh ? second[0] * (cg[t.h2o] + cg[0])
+                                            : second[0];
             }
         }
     }
@@ -372,23 +461,29 @@ __global__ void gas_optics_interp_kernel(
 
 // Shared-memory words of a block of tc cells (the wrapper's
 // interp_geometry computes the same).
-static long long smem_words(int tc, int G, int F, int nspec, int nent)
+static long long smem_words(int tc, int G, int F, int nspec, int nent,
+                            int ngc)
 {
     const int nq = (G + 3) / 4;
-    return (long long)tc * (3 + 16 * F + nspec) + 2LL * G + 3LL * nq + G + 1
-           + 4LL * nent;
+    return (long long)tc * (5 + 16 * F + ngc + nspec) + 2LL * G + 3LL * nq
+           + G + 1 + 4LL * nent + (long long)DESC * nspec;
 }
 
 // axis: 0 tiles cells along the first axis of the (C, L) inputs (n = c*L +
 // l at fixed l), 1 along the second (consecutive n); tc cells a block,
-// `threads` threads a block.  Table offsets must fit in 32 bits.
+// `threads` threads a block.  Table offsets must fit in 32 bits.  play,
+// tlay (C, L) and col_gas (C, L, ngc) are the cells' inputs; desc holds
+// nspec descriptor rows of DESC ints whose col_gas indices, and h2o, are
+// below ngc.
 extern "C" int rrtmgp_gas_optics_interp_f32(
     const float* tab_a, long long a_sr, long long a_se,
     const float* tab_b, long long b_sr, long long b_se, int b_rayleigh,
     const float* kmin_lo, int ncont_lo, const float* kmin_up, int ncont_up,
     const int* jtemp0, const int* jpress0, const int* itropo01,
     const int* jeta0, const float* col_mix, const float* fminor,
-    const float* fmajor, const int* gflav, const float* sc, int nspec,
+    const float* fmajor, const int* gflav, const float* play,
+    const float* tlay, const float* col_gas, int ngc, int h2o,
+    const int* desc, int nspec,
     const int* ent_off, const int* ent, int nent, const int* quad_minor,
     float* out_a, float* out_b, int C, int L, int G, int F, int ntemp,
     int neta,
@@ -400,7 +495,7 @@ extern "C" int rrtmgp_gas_optics_interp_f32(
     const long long nB = axis ? C : L;
     const long long blocks = (nA + tc - 1) / tc * nB;
     const size_t smem = sizeof(int) * (size_t)smem_words(tc, G, F, nspec,
-                                                         nent);
+                                                         nent, ngc);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             gas_optics_interp_kernel,
@@ -425,6 +520,7 @@ extern "C" int rrtmgp_gas_optics_interp_f32(
         t.ntemp = ntemp;
         t.neta = neta;
         t.F = F;
+        t.h2o = h2o;
         const bool vec =
             (G & 3) == 0 && ((a_sr | a_se | b_sr | b_se) & 3) == 0
             && (((uintptr_t)tab_a | (uintptr_t)tab_b | (uintptr_t)out_a
@@ -432,8 +528,8 @@ extern "C" int rrtmgp_gas_optics_interp_f32(
         gas_optics_interp_kernel<<<(unsigned int)blocks, threads, smem,
                                    (cudaStream_t)stream>>>(
             t, jtemp0, jpress0, itropo01, jeta0, col_mix, fminor, fmajor,
-            gflav, sc, nspec, ent_off, ent, nent, quad_minor, out_a, out_b,
-            C, L, G, axis, tc, vec);
+            gflav, play, tlay, col_gas, ngc, desc, nspec, ent_off, ent, nent,
+            quad_minor, out_a, out_b, C, L, G, axis, tc, vec);
     }
     return (int)cudaGetLastError();
 }

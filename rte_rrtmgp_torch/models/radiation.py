@@ -282,7 +282,7 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
     if lm:
         with _stage("sw_layer_major"):
             lm_in = tuple(map(gas_ops.layer_major,
-                              (interp, p_lay, t_lay, col_gas, col_dry)))
+                              (interp, p_lay, t_lay, col_gas)))
             to_lm2 = lambda o: optics_ops.OpticalProps2str(
                 tau=gas_ops._cells(o.tau, "lm"),
                 ssa=gas_ops._cells(o.ssa, "lm"), g=gas_ops._cells(o.g, "lm"))

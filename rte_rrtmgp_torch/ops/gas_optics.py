@@ -12,9 +12,12 @@ Port of the reference gas-optics kernels
   minor-gas intervals (:458-579).  They run on the card in one of two forms:
 
   - per-cell weights, resolved per g-point in the kernel
-    ``csrc/gas_optics_interp.cu``: ONE launch per spectral chunk through
-    :func:`tau_majmin_and_pfrac` / :func:`tau_majmin_and_rayleigh` (the
-    default, ``cellw``); :func:`majmin_plain` is its twin;
+    ``csrc/gas_optics_interp.cu``, which also scales the minor intervals
+    and the Rayleigh k from the cells' inputs: ONE launch per spectral
+    chunk through :func:`tau_majmin_and_pfrac` /
+    :func:`tau_majmin_and_rayleigh` (the default, ``cellw``);
+    :func:`majmin_cells_plain` (:func:`minor_scaling`, then
+    :func:`majmin_plain`) is its twin;
   - per-g weight PLANES built here (:func:`_fused_inputs`,
     :func:`_minor_prep`) and read by ``csrc/interp_rows.cu``: the
     ``cellw=False`` step and the single-quantity functions
@@ -370,7 +373,8 @@ def minor_specs(kd: KDist):
 def minor_scaling(kd: KDist, interp: Interp, play, tlay, col_gas):
     """(ncol, nlay, nspec) scaling of every minor interval of the chunk in
     :func:`minor_specs` order, the atmosphere mask folded in (zero where
-    the cell lies in the other atmosphere)."""
+    the cell lies in the other atmosphere).  The twin's input: the
+    gas-optics kernel computes the same values per cell itself."""
     masks = (interp.tropo.to(play.dtype), (~interp.tropo).to(play.dtype))
     cols = [_spec_scaling(kd, spec, masks[atm], play, tlay, col_gas)
             for atm, spec in minor_specs(kd)]
@@ -405,13 +409,29 @@ def _add_minor(kd: KDist, interp: Interp, sc, tau):
 
 
 def majmin_plain(kd: KDist, interp: Interp, sc, rayleigh: bool):
-    """Plain twin of the gas-optics kernel for one spectral chunk: returns
+    """The gas-optics kernel's interpolation for one spectral chunk, given
+    the minor scalings ``sc`` (:func:`minor_scaling`): returns
     (tau_major*col_mix + minor, pfrac) or, with ``rayleigh``,
     (tau_abs, krayl before the column-amount factor)."""
     tau = _add_minor(kd, interp, sc,
                      _interp3d_rows(kd, kd.kmajor_rows, interp, True))
     second = (_krayl_interp(kd, interp) if rayleigh
               else _interp3d_rows(kd, kd.planck_rows, interp, False))
+    return tau, second
+
+
+def majmin_cells_plain(kd: KDist, interp: Interp, play, tlay, col_gas,
+                       rayleigh: bool):
+    """Plain twin of the gas-optics kernel (the wrapper's signature):
+    :func:`majmin_plain` over :func:`minor_scaling`, and in the SW the
+    Rayleigh k times its column amount, water vapour plus the dry column
+    (which :func:`build_col_gas` puts at index 0).  Returns (tau, pfrac)
+    or (tau_abs, tau_rayleigh)."""
+    tau, second = majmin_plain(
+        kd, interp, minor_scaling(kd, interp, play, tlay, col_gas), rayleigh)
+    if rayleigh:
+        second = second * (col_gas[:, :, kd.idx_h2o]
+                           + col_gas[:, :, 0])[:, :, None]
     return tau, second
 
 
@@ -510,21 +530,21 @@ def tau_majmin_and_pfrac(kd: KDist, interp: Interp, play, tlay, col_gas,
     per-cell-weight kernel; otherwise the weight-plane kernel twice (the
     fused kmajor+planck pass, then the minor pass)."""
     if cellw:
-        sc = minor_scaling(kd, interp, play, tlay, col_gas)
-        return _b1.gas_optics_interp(kd, interp, sc, rayleigh=False)
+        return _b1.gas_optics_interp(kd, interp, play, tlay, col_gas,
+                                     rayleigh=False)
     tau, pfrac = tau_major_and_pfrac(kd, interp)
     return _tau_minor_planes(kd, interp, play, tlay, col_gas, tau), pfrac
 
 
 def tau_majmin_and_rayleigh(kd: KDist, interp: Interp, play, tlay, col_gas,
-                            col_dry, cellw: bool = True):
+                            col_dry=None, cellw: bool = True):
     """kmajor + MINOR + krayl for one spectral chunk.  Returns (tau_abs,
-    tau_rayleigh).  ``cellw``: as :func:`tau_majmin_and_pfrac`."""
+    tau_rayleigh).  ``cellw``: as :func:`tau_majmin_and_pfrac`; the kernel
+    reads the dry column in ``col_gas``, and only the weight-plane path
+    needs ``col_dry``."""
     if cellw:
-        sc = minor_scaling(kd, interp, play, tlay, col_gas)
-        tau, kloc = _b1.gas_optics_interp(kd, interp, sc, rayleigh=True)
-        fac = (col_gas[:, :, kd.idx_h2o] + col_dry)[:, :, None]
-        return tau, kloc * fac
+        return _b1.gas_optics_interp(kd, interp, play, tlay, col_gas,
+                                     rayleigh=True)
     tau, ray = tau_major_and_rayleigh(kd, interp, col_gas, col_dry)
     return _tau_minor_planes(kd, interp, play, tlay, col_gas, tau), ray
 

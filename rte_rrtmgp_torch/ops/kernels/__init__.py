@@ -5,9 +5,13 @@ Every wrapper dispatches by tensor device and dtype: a CPU tensor or a
 float64 tensor runs the kernel's plain PyTorch twin (the JAX package runs
 its Pallas kernels for float32 only), a CUDA float32 tensor launches the
 kernel (built at first use), anything else raises.  Each launch adds one
-to the wrapper's count in :data:`LAUNCHES`; a twin counts nothing.
+to the wrapper's count in :data:`LAUNCHES`, and a gas-optics launch its
+chunk's minor intervals to :data:`MINOR_SCALED` (:func:`minor_scaled`); a
+twin counts nothing.
 """
 
-from ._build import LAUNCHES, build, launch_counts, reset_launch_counts
+from ._build import (LAUNCHES, MINOR_SCALED, build, launch_counts,
+                     minor_scaled, reset_launch_counts)
 
-__all__ = ["LAUNCHES", "build", "launch_counts", "reset_launch_counts"]
+__all__ = ["LAUNCHES", "MINOR_SCALED", "build", "launch_counts",
+           "minor_scaled", "reset_launch_counts"]

@@ -42,8 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rrtmgp_gas_optics_interp_f32": (
         _P, _L, _L, _P, _L, _L, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _P),
+        _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+        _I, _I, _I, _I, _I, _I, _I, _P),
     "rrtmgp_interp_rows_f32": (
         _I, _P, _L, _L, _P, _I, _P, _P, _P, _P, _L, _L, _P, _I, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
@@ -66,16 +66,29 @@ LAUNCHES = {"gas_optics_interp": 0, "interp_rows_multi": 0, "interp_rows": 0,
             "lw_sweep": 0, "sw_2stream": 0, "lw_sweep_lm": 0,
             "sw_2stream_lm": 0}
 
+# Minor intervals whose scaling the gas-optics kernel computed from the
+# cells' inputs, summed over its launches: 134 a step of the published
+# tables (38 + 36 LW, 34 + 26 SW intervals, each in one spectral chunk).
+MINOR_SCALED = {"gas_optics_interp": 0}
+
 _state = {"lib": None, "info": None}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero :data:`LAUNCHES` and :data:`MINOR_SCALED`."""
+    for counts in (LAUNCHES, MINOR_SCALED):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def minor_scaled() -> int:
+    """Minor intervals scaled inside the gas-optics kernel since the last
+    :func:`reset_launch_counts`."""
+    return MINOR_SCALED["gas_optics_interp"]
 
 
 def _nvcc() -> str:

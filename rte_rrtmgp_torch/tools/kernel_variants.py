@@ -185,8 +185,7 @@ def main(argv) -> int:
     # ---- B1: cells a block x threads, both layouts ----
     for layout in ("default", "layer_major") if "b1" in which else ():
         recs = calls[layout]["gas_optics_interp"]
-        refs = [go.majmin_plain(a[0], a[1], a[2], kw["rayleigh"])
-                for a, kw in recs]
+        refs = [go.majmin_cells_plain(*a, **kw) for a, kw in recs]
         for tc in (8, 16, 32, 64, 128):
             for threads in (128, 256, 512):
                 with patched((k_interp, "TILE_CELLS", tc),

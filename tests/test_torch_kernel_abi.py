@@ -183,34 +183,37 @@ def test_sw_geometry_narrows_and_widens():
             solvers.sw_geometry(4, 72, G)
 
 
-def _words(tc, G, F, nspec, nent):
-    return (tc * (3 + 16 * F + nspec) + 2 * G + 3 * ((G + 3) // 4) + G + 1
-            + 4 * nent)
+def _words(tc, G, F, nspec, nent, ngc):
+    """Per cell 5 scalars (itropo, jtemp, jpress, play, tlay), 16F weights,
+    ngc column amounts and nspec scalings; per block the g-point tables,
+    4 words a minor entry and 5 a minor interval."""
+    return (tc * (5 + 16 * F + ngc + nspec) + 2 * G + 3 * ((G + 3) // 4)
+            + G + 1 + 4 * nent + 5 * nspec)
 
 
-@pytest.mark.parametrize("C, L, G, nspec, nent, axis, tc, blocks", [
-    (2048, 72, 128, 8, 128, 0, 32, 64 * 72),   # flagship chunk with minors
-    (2048, 72, 96, 0, 0, 0, 32, 64 * 72),      # flagship SW chunk, none
-    (72, 2048, 128, 8, 128, 1, 32, 64 * 72),   # layer-major call
-    (8, 24, 128, 8, 128, 1, 24, 8),            # golden case
-    (37, 20, 13, 5, 50, 0, 32, 2 * 20),        # ragged tile and g tail
-    (1, 1, 1, 0, 0, 0, 1, 1),
+@pytest.mark.parametrize("C, L, G, nspec, nent, ngc, axis, tc, blocks", [
+    (2048, 72, 128, 8, 128, 20, 0, 32, 64 * 72),  # flagship chunk, minors
+    (2048, 72, 96, 0, 0, 20, 0, 32, 64 * 72),     # flagship SW chunk, none
+    (72, 2048, 128, 8, 128, 20, 1, 32, 64 * 72),  # layer-major call
+    (8, 24, 128, 8, 128, 9, 1, 24, 8),            # golden case
+    (37, 20, 13, 5, 50, 9, 0, 32, 2 * 20),        # ragged tile and g tail
+    (1, 1, 1, 0, 0, 2, 0, 1, 1),
 ])
-def test_interp_geometry(C, L, G, nspec, nent, axis, tc, blocks):
+def test_interp_geometry(C, L, G, nspec, nent, ngc, axis, tc, blocks):
     F = 9
-    geo = b1.interp_geometry(C, L, G, F, nspec, nent)
+    geo = b1.interp_geometry(C, L, G, F, nspec, nent, ngc)
     assert (geo.axis, geo.tc, geo.blocks) == (axis, tc, blocks)
-    assert geo.smem_bytes == 4 * _words(tc, G, F, nspec, nent)
+    assert geo.smem_bytes == 4 * _words(tc, G, F, nspec, nent, ngc)
     assert geo.threads == b1.THREADS
 
 
 def test_interp_geometry_halves_the_tile_to_fit():
     # 4 words an entry: 12000 entries leave room for 32 cells, not 64.
-    geo = b1.interp_geometry(2048, 72, 128, 9, 8, 12000, tc=64)
+    geo = b1.interp_geometry(2048, 72, 128, 9, 8, 12000, 20, tc=64)
     assert geo.tc == 32 and geo.smem_bytes <= _build.SMEM_PER_BLOCK
-    assert 4 * _words(64, 128, 9, 8, 12000) > _build.SMEM_PER_BLOCK
+    assert 4 * _words(64, 128, 9, 8, 12000, 20) > _build.SMEM_PER_BLOCK
     with pytest.raises(ValueError):
-        b1.interp_geometry(2048, 72, 128, 9, 8, 60000)
+        b1.interp_geometry(2048, 72, 128, 9, 8, 60000, 20)
 
 
 def test_minor_entries_order():
@@ -248,3 +251,78 @@ def test_minor_entries_quads():
              (0, spec(12, 14, 0)))
     _, _, _, quad = b1._minor_entries(specs, 15, cpu)
     assert quad.tolist() == [1, 1, 0, 0]
+
+
+def test_minor_desc_matches_specs_and_decodes_to_minor_scaling():
+    """The descriptor rows of B1 follow ``minor_specs`` field for field,
+    and decoded with plain torch in the kernel's operations (each cell
+    scales only the intervals of its own atmosphere, 0 elsewhere) give
+    ``minor_scaling`` exactly, a layer with col_dry == 0 included (no
+    NaN); a chunk without minor intervals has one placeholder row."""
+    import numpy as np
+    import torch
+    from rte_rrtmgp_torch.cases.profiles import make_atmosphere
+    from rte_rrtmgp_torch.data import synthetic
+    from rte_rrtmgp_torch.models.kdist import KDist
+    from rte_rrtmgp_torch.ops import gas_optics as go
+
+    cpu, f32 = torch.device("cpu"), torch.float32
+    gases = ["h2o", "co2", "o3", "n2o", "co", "ch4", "o2", "n2"]
+    ncol, nlay = 5, 12
+    atm = make_atmosphere(ncol, nlay, seed=4)
+    t = lambda a: torch.tensor(np.ascontiguousarray(a[:, ::-1]), dtype=f32)
+    play, tlay = t(atm["p_lay"]), t(atm["t_lay"])
+    vmr = t(atm["gas_concs"].materialize(gases, ncol, nlay))
+    col_dry = go.get_col_dry(vmr[:, :, 0], t(atm["p_lev"]))
+    col_dry[:, 0] = 0.0                    # a degenerate top layer
+    col_gas = go.build_col_gas(vmr, col_dry)
+    tiny = torch.finfo(f32).tiny
+    seen = set()
+    for longwave in (True, False):
+        kd = KDist.from_raw(synthetic.make_kdist_raw(longwave,
+                                                     gpt_per_band=2),
+                            gases, dtype=f32, device=cpu)
+        interp = go.interpolation(kd, play, tlay, col_gas)
+        assert bool(interp.tropo.any()) and bool((~interp.tropo).any())
+        for g0, g1 in ((0, kd.ngpt), (0, 3), (kd.ngpt - 2, kd.ngpt)):
+            kdc = kd.slice_gpt(g0, g1)
+            specs = tuple(go.minor_specs(kdc))
+            desc, top = b1._minor_desc(specs, cpu)
+            assert desc.dtype == torch.int32
+            if not specs:
+                assert desc.shape == (1, 5) and top == 0
+                seen.add("none")
+                continue
+            assert desc.shape == (len(specs), len(b1.DESC_FIELDS))
+            for row, (atm_, s) in zip(desc.tolist(), specs):
+                assert row == [atm_, s.idx_minor, s.idx_scaling,
+                               int(s.scales_with_density),
+                               int(s.scale_by_complement)]
+                seen.add((bool(s.scales_with_density), s.idx_scaling > 0,
+                          bool(s.scale_by_complement)))
+            assert top == max(max(s.idx_minor, s.idx_scaling)
+                              for _, s in specs)
+            cg = col_gas
+            cols = []
+            for atm_, im, isc, dens, comp in desc.tolist():
+                s = cg[:, :, im]
+                if dens:
+                    s = s * ((0.01 * play) / tlay)
+                    if isc > 0:
+                        dry = torch.where(cg[:, :, 0] < tiny,
+                                          torch.tensor(tiny, dtype=f32),
+                                          cg[:, :, 0])
+                        vmr_fact = 1.0 / dry
+                        dry_fact = 1.0 / (1.0 + cg[:, :, kd.idx_h2o]
+                                          * vmr_fact)
+                        sx = cg[:, :, isc] * vmr_fact * dry_fact
+                        s = s * ((1.0 - sx) if comp else sx)
+                cols.append(torch.where(interp.itropo01 == atm_, s,
+                                        torch.zeros((), dtype=f32)))
+            ref = go.minor_scaling(kdc, interp, play, tlay, col_gas)
+            assert torch.isfinite(ref).all()
+            assert torch.equal(torch.stack(cols, dim=-1), ref)
+    # the synthetic intervals cover: with and without density, a scaling
+    # gas or none, the complement; and a chunk without any
+    assert {(True, True, False), (True, True, True), (True, False, False),
+            (False, False, False), "none"} <= seen

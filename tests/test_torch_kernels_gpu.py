@@ -162,9 +162,10 @@ def test_gas_optics_interp(cuda, longwave):
     kd, interp, play, tlay, col_gas, _ = _gas_case(cuda, longwave)
     for g0, g1 in ((0, 36), (36, kd.ngpt)):
         kdc = kd.slice_gpt(g0, g1)
-        sc = go.minor_scaling(kdc, interp, play, tlay, col_gas)
-        got = b1.gas_optics_interp(kdc, interp, sc, rayleigh=not longwave)
-        ref = go.majmin_plain(kdc, interp, sc, rayleigh=not longwave)
+        got = b1.gas_optics_interp(kdc, interp, play, tlay, col_gas,
+                                   rayleigh=not longwave)
+        ref = go.majmin_cells_plain(kdc, interp, play, tlay, col_gas,
+                                    rayleigh=not longwave)
         for name, a, b in zip(("tau", "second"), got, ref):
             _assert_close(a, b, f"{name} [{g0}, {g1})")
 
@@ -178,25 +179,78 @@ def _exact(a, b, name):
 @pytest.mark.parametrize("order", ["cm", "lm"])
 @pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
 def test_gas_optics_interp_exact(cuda, monkeypatch, longwave, order, tile):
-    """B1 bit-equal to its twin: chunks with minor intervals ([0, 12),
-    [0, 96)) and without ([128, 224)), G = 12 and 96, a chunk view starting
-    off a 16-byte boundary with a ragged tail ([2, 15): the scalar path),
-    37 x 20 cells (no multiple of the tile), in column-major and
-    layer-major cell order."""
+    """B1, which scales the minor intervals (and in the SW the Rayleigh k)
+    from the cells' inputs itself, bit-equal to its twin
+    ``majmin_plain(kd, interp, minor_scaling(...), rayleigh)`` (times the
+    Rayleigh factor in the SW): chunks with minor intervals ([0, 12),
+    [0, 96): with and without density, a scaling gas or none, the
+    complement, in both atmospheres) and without ([128, 224)), G = 12, 96
+    and 1 ([5, 6)), a chunk view starting off a 16-byte boundary with a
+    ragged tail ([2, 15): the scalar path), 37 x 20 cells (no multiple of
+    the tile) with col_dry == 0 in the top and the bottom layer (finite
+    everywhere), in column-major and layer-major cell order."""
     monkeypatch.setattr(b1, "TILE_CELLS", tile)
-    kd, interp, play, tlay, col_gas, _ = _gas_case(cuda, longwave, 37, 20,
-                                                   gpt_per_band=16)
+    kd, _, play, tlay, col_gas, _ = _gas_case(cuda, longwave, 37, 20,
+                                              gpt_per_band=16)
+    col_gas = col_gas.clone()
+    col_gas[:, 0] = 0.0                  # the dry column and every gas's
+    col_gas[:, -1] = 0.0
+    interp = go.interpolation(kd, play, tlay, col_gas)
+    assert bool(interp.tropo[:, -1].all()) and not bool(interp.tropo[:, 0].any())
     if order == "lm":
         interp, play, tlay, col_gas = map(go.layer_major,
                                           (interp, play, tlay, col_gas))
-    for g0, g1 in ((0, 12), (0, 96), (128, 224), (2, 15)):
+    kinds = set()
+    for g0, g1 in ((0, 12), (0, 96), (128, 224), (2, 15), (5, 6)):
         kdc = kd.slice_gpt(g0, g1)
+        kinds |= {(s.scales_with_density, s.idx_scaling > 0,
+                   s.scale_by_complement) for _, s in go.minor_specs(kdc)}
         sc = go.minor_scaling(kdc, interp, play, tlay, col_gas)
-        got = b1.gas_optics_interp(kdc, interp, sc, rayleigh=not longwave)
-        ref = go.majmin_plain(kdc, interp, sc, rayleigh=not longwave)
-        for name, a, b in zip(("tau", "second"), got, ref):
+        tau, second = go.majmin_plain(kdc, interp, sc, not longwave)
+        if not longwave:
+            second = second * (col_gas[:, :, kdc.idx_h2o]
+                               + col_gas[:, :, 0])[:, :, None]
+        got = b1.gas_optics_interp(kdc, interp, play, tlay, col_gas,
+                                   rayleigh=not longwave)
+        for name, a, b in zip(("tau", "second"), got, (tau, second)):
+            assert bool(torch.isfinite(a).all()), f"{name} [{g0}, {g1})"
             _exact(a, b, f"{name} [{g0}, {g1}) minor="
                          f"{len(go.minor_specs(kdc))}")
+    assert {(True, True, False), (True, True, True), (True, False, False),
+            (False, False, False)} <= kinds
+
+
+@pytest.mark.parametrize("layout", ["default", "layer_major"])
+def test_flagship_step_scales_134_minor_intervals_in_kernel(cuda, monkeypatch,
+                                                           layout):
+    """A step at the published tables' shapes (``benchmark/inputs``: 38 +
+    36 LW and 34 + 26 SW minor intervals, each over one band) in 128-g
+    chunks: its 4 gas-optics launches scale all 134 intervals in-kernel,
+    and the fluxes equal those of the same step through the twins of the
+    gas-optics kernel within float32 sums' rounding."""
+    from benchmark.inputs import atmosphere as batm
+    from benchmark.inputs import tables as btab
+    from rte_rrtmgp_torch.models.cloud_lut import CloudLUT
+    gases = btab.GAS_NAMES
+    kds = [KDist.from_raw(btab.make_kdist_raw(lw, 7), gases, device=cuda)
+           for lw in (True, False)]
+    cluts = [CloudLUT.from_raw(btab.make_cloud_raw(lw, 7), device=cuda)
+             for lw in (True, False)]
+    arrs = batm.step_arrays(batm.make_atmosphere(64, 256, 7), np.float32,
+                            gases)
+    args = [torch.as_tensor(arrs[k], device=cuda) for k in step.ARG_NAMES]
+    run = step.make_step(*kds, *cluts, gpt_chunk=128,
+                         cellw=True, layer_major=layout == "layer_major")
+    kernels.reset_launch_counts()
+    out = run(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gas_optics_interp"] == 4
+    assert kernels.minor_scaled() == 134
+    monkeypatch.setattr(b1, "gas_optics_interp", go.majmin_cells_plain)
+    ref = run(*args)
+    for k, v in ref.items():
+        assert bool(torch.isfinite(out[k]).all()), k
+        _assert_close(out[k], v, k)
 
 
 @pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
@@ -402,9 +456,10 @@ def _b123_against_twins(dev):
     kernels.reset_launch_counts()
     for longwave in (True, False):
         kd, interp, play, tlay, col_gas, _ = _gas_case(dev, longwave)
-        sc = go.minor_scaling(kd, interp, play, tlay, col_gas)
-        got = b1.gas_optics_interp(kd, interp, sc, rayleigh=not longwave)
-        ref = go.majmin_plain(kd, interp, sc, rayleigh=not longwave)
+        got = b1.gas_optics_interp(kd, interp, play, tlay, col_gas,
+                                   rayleigh=not longwave)
+        ref = go.majmin_cells_plain(kd, interp, play, tlay, col_gas,
+                                    rayleigh=not longwave)
         for name, a, b in zip(("tau", "second"), got, ref):
             assert a.device == dev
             _assert_close(a, b, f"B1 {name} longwave={longwave}")
@@ -456,9 +511,9 @@ def test_float32_input_requiring_grad_raises(cuda):
         b23.lw_sweep(*lw, D=1.66, w=1.0)
         b23.sw_2stream(*sw)
     kd, interp, play, tlay, col_gas, _ = _gas_case(cuda, True)
-    sc = go.minor_scaling(kd, interp, play, tlay, col_gas).requires_grad_()
+    col_gas = col_gas.clone().requires_grad_()
     with pytest.raises(RuntimeError, match="gas_optics_interp"):
-        b1.gas_optics_interp(kd, interp, sc, rayleigh=False)
+        b1.gas_optics_interp(kd, interp, play, tlay, col_gas, rayleigh=False)
     rows, jes, fms, fp, cms = go._fused_inputs(kd, interp, True)
     fms = [f.clone().requires_grad_() for f in fms]
     with pytest.raises(RuntimeError, match="interp_rows"):

@@ -30,11 +30,18 @@ tables' device, then the default; ``config.cellw_enabled`` /
   per-cell-weight kernel on layer-major inputs, so every (N, G) plane has
   cell (c, l) at row l*ncol + c, then the layer-major solver kernels.
 
+With ``clear_sky=True`` (broadband fluxes only) each chunk is solved twice
+on one gas-optics pass: on its gas-only optics before the clouds are
+added (``*_clrsky_flux_*`` outputs), then on the all-sky optics, as a GCM
+computes its clear-sky diagnostics; the two solves share the chunk's
+surface and top-of-atmosphere inputs.
+
 Each stage of the pipeline (``STAGES``: inputs, column gas, cloud and
 aerosol optics, interpolation, gas optics, Planck sources, optics
-combination, solve, fluxes) runs inside a ``torch.profiler`` range of its
-name while a profiler runs, so a profile of any solve gives the card's
-time by stage (``tools/profile_stages.py``).
+combination, solve, fluxes, the clear-sky solve and fluxes) runs inside a
+``torch.profiler`` range of its name while a profiler runs, so a profile
+of any solve gives the card's time by stage
+(``tools/profile_stages.py``).
 
 All tensors live on the tables' device.  ``dtype`` follows the JAX
 package's rule: ``None`` is the dtype of ``p_lay`` as given (float64 for a
@@ -53,6 +60,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..ops.kernels import _build
 from ..ops import (aerosol_optics as aero_ops, cloud_optics as cloud_ops,
                    fluxes as flux_ops, gas_optics as gas_ops,
                    optics_ops, rte_lw, rte_sw)
@@ -75,7 +83,7 @@ def _flip_lay(a):
 # runs (``tools/profile_stages.py`` reads the card's time by range).
 STAGES = tuple(f"{s}_{n}" for s in ("lw", "sw") for n in (
     "inputs", "col_gas", "cloud_optics", "interpolation", "layer_major",
-    "gas_optics", "solve", "fluxes")) + (
+    "gas_optics", "solve", "fluxes", "solve_clrsky", "fluxes_clrsky")) + (
     "lw_planck", "lw_cloud_add", "sw_aerosol_optics", "sw_combine",
     "sw_cloud_increment", "sw_aerosol_increment")
 
@@ -101,13 +109,31 @@ def _layouts(kd: KDist, cellw, layer_major, broadband_only: bool):
     return cellw, lm
 
 
+def _refuse_clear_sky(clear_sky: bool, output_bnd_fluxes: bool,
+                      output_optical: bool, with_fluxes: bool) -> None:
+    """The clear-sky fluxes are broadband fluxes beside the all-sky ones:
+    refuse ``clear_sky`` with by-band or optical output, or with no
+    fluxes."""
+    if not clear_sky:
+        return
+    bad = [k for k, v in (("output_bnd_fluxes=True", output_bnd_fluxes),
+                          ("output_optical=True", output_optical),
+                          ("with_fluxes=False", not with_fluxes)) if v]
+    if bad:
+        raise ValueError(f"clear_sky=True with {' and '.join(bad)}: the "
+                         "clear-sky fluxes are broadband fluxes only")
+
+
 def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
                    vmr, col_dry, emis_sfc, lwp, iwp, rel, dei,
                    *, top_at_1: bool, gpt_chunk, output_bnd_fluxes: bool,
                    n_gauss_angles: int, with_clouds: bool,
                    output_optical: bool = False, with_fluxes: bool = True,
                    cellw: Optional[bool] = None,
-                   layer_major: Optional[bool] = None):
+                   layer_major: Optional[bool] = None,
+                   clear_sky: bool = False):
+    _refuse_clear_sky(clear_sky, output_bnd_fluxes, output_optical,
+                      with_fluxes)
     with _stage("lw_inputs"):
         if not top_at_1:
             p_lay, t_lay, vmr, col_dry = map(_flip_lay,
@@ -132,6 +158,9 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
         flux_up, flux_dn = new(ncol, nlev), new(ncol, nlev)
         bnd_up = new(ncol, nlev, nbnd) if output_bnd_fluxes else None
         bnd_dn = new(ncol, nlev, nbnd) if output_bnd_fluxes else None
+    if clear_sky:
+        with _stage("lw_fluxes_clrsky"):
+            clr = [new(ncol, nlev), new(ncol, nlev)]   # up, dn
 
     with _stage("lw_interpolation"):
         interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
@@ -148,6 +177,43 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
             cld_tau = gas_ops._cells(cld.tau, "lm") if with_clouds else None
     elif with_clouds:
         cld_tau = cld.tau
+
+    def surface(kdc, src):
+        """The chunk's surface emissivity and sources by g-point, and its
+        incident flux: the solve's inputs besides the optics."""
+        emis_gpt = flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band)
+        inc = new(ncol, kdc.ngpt)
+        if lm:
+            return emis_gpt, src.sfc_src, src.sfc_src_jac, inc
+        return (emis_gpt, src.sfc_src.contiguous(),
+                src.sfc_src_jac.contiguous(), inc)
+
+    def sweep(tau, src, bc):
+        if lm:
+            up, dn, _ = rte_lw.lw_solver_noscat_broadband_lm(
+                tau, src.lay_src, src.lev_src, *bc, ncol=ncol,
+                n_gauss_angles=n_gauss_angles)
+        else:
+            # Broadband only: the sweep kernel sums over g-points itself
+            # and never materializes (ncol, nlev, ngpt).
+            solver = (rte_lw.lw_solver_noscat if output_bnd_fluxes
+                      else rte_lw.lw_solver_noscat_broadband)
+            up, dn, _ = solver(tau, src.lay_src, src.lev_src, *bc,
+                               n_gauss_angles=n_gauss_angles)
+        return up, dn
+
+    def solve_clear_sky(kdc, tau, src):
+        """Solve the chunk's gas-only optics into the clear-sky
+        accumulators; returns the surface inputs for the all-sky solve.
+        Its fluxes are freed here, before the clouds are added."""
+        with _stage("lw_solve_clrsky"):
+            bc = surface(kdc, src)
+            fluxes = sweep(tau, src, bc)
+        with _stage("lw_fluxes_clrsky"):
+            for acc, f in zip(clr, fluxes):
+                acc += f
+            _build.CLRSKY_GPTS["driver"] += kdc.ngpt
+        return bc
 
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
@@ -166,6 +232,7 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
             else:
                 src = gas_ops.planck_source(kdc, interp, t_lay, t_lev, t_sfc,
                                             sfc_lay=nlay - 1, pfrac=pfrac)
+        bc = solve_clear_sky(kdc, tau, src) if clear_sky else None
         if with_clouds:
             with _stage("lw_cloud_add"):
                 tau = tau + flux_ops.expand_bands_to_gpt(cld_tau,
@@ -179,23 +246,7 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
             continue
 
         with _stage("lw_solve"):
-            emis_gpt = flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band)
-            inc = new(ncol, g1 - g0)
-            if lm:
-                up, dn, _ = rte_lw.lw_solver_noscat_broadband_lm(
-                    tau, src.lay_src, src.lev_src, emis_gpt, src.sfc_src,
-                    src.sfc_src_jac, inc, ncol=ncol,
-                    n_gauss_angles=n_gauss_angles)
-            else:
-                sources = (src.lay_src, src.lev_src, emis_gpt,
-                           src.sfc_src.contiguous(),
-                           src.sfc_src_jac.contiguous(), inc)
-                # Broadband only: the sweep kernel sums over g-points itself
-                # and never materializes (ncol, nlev, ngpt).
-                solver = (rte_lw.lw_solver_noscat if output_bnd_fluxes
-                          else rte_lw.lw_solver_noscat_broadband)
-                up, dn, _ = solver(tau, *sources,
-                                   n_gauss_angles=n_gauss_angles)
+            up, dn = sweep(tau, src, bc or surface(kdc, src))
         with _stage("lw_fluxes"):
             if not output_bnd_fluxes:
                 flux_up = flux_up + up
@@ -211,6 +262,10 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
         if with_fluxes:
             out.update(lw_flux_up=flux_up, lw_flux_dn=flux_dn,
                        lw_flux_net=flux_dn - flux_up)
+        if clear_sky:
+            up, dn = clr
+            out.update(lw_clrsky_flux_up=up, lw_clrsky_flux_dn=dn,
+                       lw_clrsky_flux_net=dn - up)
         if output_bnd_fluxes:
             out.update(lw_bnd_flux_up=bnd_up, lw_bnd_flux_dn=bnd_dn,
                        lw_bnd_flux_net=bnd_dn - bnd_up)
@@ -233,7 +288,10 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                    delta_cloud: bool, delta_aerosol: bool,
                    output_optical: bool = False, with_fluxes: bool = True,
                    cellw: Optional[bool] = None,
-                   layer_major: Optional[bool] = None):
+                   layer_major: Optional[bool] = None,
+                   clear_sky: bool = False):
+    _refuse_clear_sky(clear_sky, output_bnd_fluxes, output_optical,
+                      with_fluxes)
     with _stage("sw_inputs"):
         if not top_at_1:
             p_lay, t_lay, vmr, col_dry = map(_flip_lay,
@@ -272,6 +330,9 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                                       new(ncol, nlev))
         bnd = ({k: new(ncol, nlev, nbnd) for k in ("up", "dn", "dir")}
                if output_bnd_fluxes else None)
+    if clear_sky:
+        with _stage("sw_fluxes_clrsky"):
+            clr = [new(ncol, nlev) for _ in range(3)]   # up, dn, dir
 
     with _stage("sw_interpolation"):
         interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
@@ -289,6 +350,35 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
             cld = to_lm2(cld) if with_clouds else cld
             aer = to_lm2(aer) if with_aerosols else aer
 
+    def toa_source(kdc):
+        return (kdc.solar_source[None, :] * tsi_scaling[:, None]).to(dtype)
+
+    def albedos(kdc):
+        return tuple(flux_ops.expand_bands_to_gpt(a, kdc.gpt2band)
+                     for a in (sfc_alb_dir, sfc_alb_dif))
+
+    def two_stream(op, toa, alb_dir, alb_dif):
+        if lm:
+            return rte_sw.sw_solver_2stream_broadband_lm(
+                op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa,
+                ncol=ncol)
+        solver = (rte_sw.sw_solver_2stream if output_bnd_fluxes
+                  else rte_sw.sw_solver_2stream_broadband)
+        return solver(op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa)
+
+    def solve_clear_sky(kdc, op):
+        """Solve the chunk's gas-only optics into the clear-sky
+        accumulators; returns the TOA source and albedos for the all-sky
+        solve.  Its fluxes are freed here, before the clouds are added."""
+        with _stage("sw_solve_clrsky"):
+            bc = (toa_source(kdc), *albedos(kdc))
+            fluxes = two_stream(op, *bc)
+        with _stage("sw_fluxes_clrsky"):
+            for acc, f in zip(clr, fluxes):
+                acc += f
+            _build.CLRSKY_GPTS["driver"] += kdc.ngpt
+        return bc
+
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
         with _stage("sw_gas_optics"):
@@ -301,6 +391,7 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
         with _stage("sw_combine"):
             tau, ssa, g = gas_ops.combine_abs_and_rayleigh(tau_abs, tau_ray)
             op = optics_ops.OpticalProps2str(tau=tau, ssa=ssa, g=g)
+        bc = solve_clear_sky(kdc, op) if clear_sky else None
         if with_clouds:
             with _stage("sw_cloud_increment"):
                 op = optics_ops.increment_2str_by_2str_bybnd(op, cld,
@@ -311,25 +402,17 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                                                              kdc.gpt2band)
 
         with _stage("sw_solve"):
-            toa = (kdc.solar_source[None, :] * tsi_scaling[:, None]).to(dtype)
-            if output_optical:
-                optical["sw_tau"].append(op.tau)
-                optical["ssa"].append(op.ssa)
-                optical["g"].append(op.g)
-                optical["toa_source"].append(toa)
-            if not with_fluxes:
-                continue
-            alb_dir = flux_ops.expand_bands_to_gpt(sfc_alb_dir, kdc.gpt2band)
-            alb_dif = flux_ops.expand_bands_to_gpt(sfc_alb_dif, kdc.gpt2band)
-            if lm:
-                up, dn, fdir = rte_sw.sw_solver_2stream_broadband_lm(
-                    op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa,
-                    ncol=ncol)
-            else:
-                solver = (rte_sw.sw_solver_2stream if output_bnd_fluxes
-                          else rte_sw.sw_solver_2stream_broadband)
-                up, dn, fdir = solver(op.tau, op.ssa, op.g, mu0_safe,
-                                      alb_dir, alb_dif, toa)
+            if bc is None:
+                toa = toa_source(kdc)
+                if output_optical:
+                    optical["sw_tau"].append(op.tau)
+                    optical["ssa"].append(op.ssa)
+                    optical["g"].append(op.g)
+                    optical["toa_source"].append(toa)
+                if not with_fluxes:
+                    continue
+                bc = (toa, *albedos(kdc))
+            up, dn, fdir = two_stream(op, *bc)
         with _stage("sw_fluxes"):
             if not output_bnd_fluxes:
                 flux_up = flux_up + up
@@ -352,6 +435,11 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
             out.update(sw_flux_up=flux_up * day, sw_flux_dn=flux_dn * day,
                        sw_flux_dn_dir=flux_dir * day,
                        sw_flux_net=(flux_dn - flux_up) * day)
+        if clear_sky:
+            up, dn, fdir = clr
+            out.update(sw_clrsky_flux_up=up * day, sw_clrsky_flux_dn=dn * day,
+                       sw_clrsky_flux_dn_dir=fdir * day,
+                       sw_clrsky_flux_net=(dn - up) * day)
         if output_bnd_fluxes:
             d3 = day[:, :, None]
             out.update(sw_bnd_flux_up=bnd["up"] * d3,

@@ -7,11 +7,13 @@ its Pallas kernels for float32 only), a CUDA float32 tensor launches the
 kernel (built at first use), anything else raises.  Each launch adds one
 to the wrapper's count in :data:`LAUNCHES`, and a gas-optics launch its
 chunk's minor intervals to :data:`MINOR_SCALED` (:func:`minor_scaled`); a
-twin counts nothing.
+twin counts nothing.  :data:`CLRSKY_GPTS` (:func:`clrsky_gpts`) counts the
+g-points a clear-sky call solved on its gas-only optics, kernels or twins.
 """
 
-from ._build import (LAUNCHES, MINOR_SCALED, build, launch_counts,
-                     minor_scaled, reset_launch_counts)
+from ._build import (CLRSKY_GPTS, LAUNCHES, MINOR_SCALED, build,
+                     clrsky_gpts, launch_counts, minor_scaled,
+                     reset_launch_counts)
 
-__all__ = ["LAUNCHES", "MINOR_SCALED", "build", "launch_counts",
-           "minor_scaled", "reset_launch_counts"]
+__all__ = ["CLRSKY_GPTS", "LAUNCHES", "MINOR_SCALED", "build", "clrsky_gpts",
+           "launch_counts", "minor_scaled", "reset_launch_counts"]

@@ -71,12 +71,19 @@ LAUNCHES = {"gas_optics_interp": 0, "interp_rows_multi": 0, "interp_rows": 0,
 # tables (38 + 36 LW, 34 + 26 SW intervals, each in one spectral chunk).
 MINOR_SCALED = {"gas_optics_interp": 0}
 
+# G-points solved on the gas-only optics by a clear-sky call
+# (``clear_sky=True``), added by the driver once a spectral chunk in every
+# layout, on the card and off it: 480 a step of the published tables
+# (256 LW + 224 SW).
+CLRSKY_GPTS = {"driver": 0}
+
 _state = {"lib": None, "info": None}
 
 
 def reset_launch_counts() -> None:
-    """Zero :data:`LAUNCHES` and :data:`MINOR_SCALED`."""
-    for counts in (LAUNCHES, MINOR_SCALED):
+    """Zero :data:`LAUNCHES`, :data:`MINOR_SCALED` and
+    :data:`CLRSKY_GPTS`."""
+    for counts in (LAUNCHES, MINOR_SCALED, CLRSKY_GPTS):
         for k in counts:
             counts[k] = 0
 
@@ -89,6 +96,12 @@ def minor_scaled() -> int:
     """Minor intervals scaled inside the gas-optics kernel since the last
     :func:`reset_launch_counts`."""
     return MINOR_SCALED["gas_optics_interp"]
+
+
+def clrsky_gpts() -> int:
+    """G-points solved clear-sky since the last
+    :func:`reset_launch_counts`."""
+    return CLRSKY_GPTS["driver"]
 
 
 def _nvcc() -> str:

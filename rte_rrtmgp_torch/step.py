@@ -1,4 +1,5 @@
-"""The flagship forward step: all-sky LW + SW broadband fluxes.
+"""The flagship forward step: all-sky LW + SW broadband fluxes, and on
+request the clear-sky ones from the same gas optics.
 
 Counterpart of the JAX package's ``__graft_entry__`` (``_build``,
 ``_atmos_arrays``, ``make_step``): clouds on, aerosols off, delta-scaled SW
@@ -65,11 +66,19 @@ def atmos_arrays(ncol: int, nlay: int, dtype=np.float32, seed: int = 0) -> dict:
 
 
 def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=None,
-              layer_major=None):
+              layer_major=None, clear_sky=False):
     """The flagship forward step on the tables' device.  The returned
     ``step(p_lay, ..., dei)`` takes tensors (or arrays) in ``ARG_NAMES``
     order and returns {lw_flux_up, lw_flux_dn, lw_flux_net, sw_flux_up,
     sw_flux_dn, sw_flux_dn_dir, sw_flux_net}, each (ncol, nlev).
+
+    ``clear_sky=True`` also returns the clear-sky fluxes a GCM writes as
+    its clear-sky diagnostics, {lw_clrsky_flux_up, lw_clrsky_flux_dn,
+    lw_clrsky_flux_net, sw_clrsky_flux_up, sw_clrsky_flux_dn,
+    sw_clrsky_flux_dn_dir, sw_clrsky_flux_net}, from the same gas optics:
+    each spectral chunk is solved once on its gas-only optics, before the
+    clouds are added, and once on the all-sky optics, whose fluxes stay
+    bit-equal to those of ``clear_sky=False``.
 
     ``cellw`` / ``layer_major`` choose the layout, i.e. which kernels run
     (``models/radiation.py``); ``None`` reads ``RTE_RRTMGP_PALLAS_CELLW`` /
@@ -89,7 +98,7 @@ def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=None,
             emis_sfc, lwp, iwp, rel, dei,
             top_at_1=False, gpt_chunk=gpt_chunk, output_bnd_fluxes=False,
             n_gauss_angles=1, with_clouds=True, cellw=cellw,
-            layer_major=layer_major)
+            layer_major=layer_major, clear_sky=clear_sky)
         zeros = torch.zeros_like(lwp)
         sw = _solve_sw_impl(
             kd_sw, clut_sw, None, p_lay, p_lev, t_lay, vmr, col_dry,
@@ -98,7 +107,7 @@ def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=None,
             top_at_1=False, gpt_chunk=gpt_chunk, output_bnd_fluxes=False,
             with_clouds=True, with_aerosols=False,
             delta_cloud=True, delta_aerosol=False, cellw=cellw,
-            layer_major=layer_major)
+            layer_major=layer_major, clear_sky=clear_sky)
         return {**lw, **sw}
 
     return step

@@ -212,6 +212,22 @@ KERNEL_INFO = {
 }
 
 
+# Wrappers that launch another wrapper's kernel: the fused SW entries run
+# B3 / B7 on the gas optics and count as their launches.
+LAUNCHED_AS = {"sw_2stream_fused": "sw_2stream",
+               "sw_2stream_fused_lm": "sw_2stream_lm"}
+
+
+def recorded(calls: dict) -> dict:
+    """Launches of each kernel counter in ``record``'s calls by wrapper."""
+    got = {}
+    for name, recs in calls.items():
+        if recs:
+            k = LAUNCHED_AS.get(name, name)
+            got[k] = got.get(k, 0) + len(recs)
+    return got
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -343,7 +359,7 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
     # bound (one broadband solve of each spectrum, recorded).
     calls = record(lambda: cli.main(files + ["--output", out["recorded"]]
                                     + clouds))
-    got = {k: len(v) for k, v in calls.items() if v}
+    got = recorded(calls)
     if got != per_solve[layout]:
         fail(f"cli recorded run: launches {got}, expected {per_solve[layout]}")
     for name in ("lw_sweep", "lw_sweep_lm"):
@@ -1709,6 +1725,8 @@ def main(argv) -> int:
         "lw_sweep_lm": (k_solvers, lambda *a, ncol, D, w:
                         rte_lw.lw_sweep_lm_plain(*a, ncol, D, w)),
         "sw_2stream_lm": (k_solvers, rte_sw.sw_2stream_lm_plain),
+        "sw_2stream_fused": (k_solvers, rte_sw.sw_2stream_fused_plain),
+        "sw_2stream_fused_lm": (k_solvers, rte_sw.sw_2stream_fused_lm_plain),
     }
     twins = Patch(*[(mod, name, twin)
                     for name, (mod, twin) in wrappers.items()])
@@ -1829,17 +1847,40 @@ def main(argv) -> int:
         nlev = tau.numel() // (C * G) + 1
         kern = lambda: getattr(k_solvers, name)(*a, **kw)
         plain = lambda: wrappers[name][1](*a, **kw)
-        geo = k_solvers.sw_geometry(C, nlev - 1, G, k_solvers.SW_TILE,
-                                    k_solvers.SW_THREADS)
+        geo = k_solvers.sw_geometry(C, nlev - 1, G, k_solvers.SW_TILE)
         return (f"G={G}", kern, plain,
                 nbytes(*[x for x in a if torch.is_tensor(x)]) + 3 * C * nlev * 4,
                 80 * tau.numel(), geo.describe())
+
+    def sw_fused_call(name, a, kw):
+        """A fused SW launch: the gas pair, the increments (clouds, then
+        aerosols) and the bands, then the plane entries' other inputs."""
+        tau_abs, _, incs, bands, mu0 = a[:5]
+        G = tau_abs.shape[-1]
+        C = mu0.shape[0]
+        nlev = tau_abs.numel() // (C * G) + 1
+        kern = lambda: getattr(k_solvers, name)(*a, **kw)
+        plain = lambda: wrappers[name][1](*a, **kw)
+        geo = k_solvers.sw_geometry(C, nlev - 1, G, k_solvers.SW_TILE,
+                                    gpt2band=bands, ninc=len(incs))
+        b = (nbytes(*[x for x in a if torch.is_tensor(x)],
+                    *[t for op in incs for t in (op.tau, op.ssa, op.g)])
+             + 3 * C * nlev * 4)
+        # ~15 operations a (cell, g) for the combination and each
+        # increment, on top of the plane entry's 80.
+        return (f"G={G} increments={len(incs)}", kern, plain, b,
+                (80 + 15 * (1 + len(incs))) * tau_abs.numel(),
+                geo.describe())
 
     makers = {"gas_optics_interp": interp_call,
               "interp_rows_multi": rows_multi_call, "interp_rows": rows_call,
               "lw_sweep": lw_call, "lw_sweep_lm": lw_lm_call,
               "sw_2stream": lambda a, kw: sw_call("sw_2stream", a, kw),
-              "sw_2stream_lm": lambda a, kw: sw_call("sw_2stream_lm", a, kw)}
+              "sw_2stream_lm": lambda a, kw: sw_call("sw_2stream_lm", a, kw),
+              "sw_2stream_fused": lambda a, kw: sw_fused_call(
+                  "sw_2stream_fused", a, kw),
+              "sw_2stream_fused_lm": lambda a, kw: sw_fused_call(
+                  "sw_2stream_fused_lm", a, kw)}
 
     def replay(name, recs, tag):
         """Each recorded launch through its kernel and its twin: agreement,
@@ -1895,13 +1936,15 @@ def main(argv) -> int:
         """Device bytes one SW launch allocates beyond its outputs (up, dn,
         dir and the returned dn + dir), measured, and the wrapper's own
         count."""
-        C = a[3].shape[0]
+        fused = name in LAUNCHED_AS
+        C = a[4 if fused else 3].shape[0]
         G = a[0].shape[-1]
         nlev = a[0].numel() // (C * G) + 1
         extra = peak_extra(lambda: getattr(k_solvers, name)(*a, **kw),
                            4 * C * nlev)
+        bands = dict(gpt2band=a[3], ninc=len(a[2])) if fused else {}
         geo = k_solvers.sw_geometry(C, nlev - 1, G, k_solvers.SW_TILE,
-                                    k_solvers.SW_THREADS)
+                                    **bands)
         return extra, 4 * geo.scratch_floats, C, nlev - 1, G
 
     def lw_scratch(name, a, kw):
@@ -1917,13 +1960,15 @@ def main(argv) -> int:
     per_layout = {}
     for layout, run_step in steps.items():
         calls = record(lambda: run_step(*args))
-        got = {k: len(v) for k, v in calls.items() if v}
+        got = recorded(calls)
         if got != expected[layout]:
             fail(f"{layout}: launches recorded in one step {got}, expected "
                  f"{expected[layout]}")
         for tag, name, scratch in (
                 ("sw", "sw_2stream", sw_scratch),
                 ("sw", "sw_2stream_lm", sw_scratch),
+                ("sw", "sw_2stream_fused", sw_scratch),
+                ("sw", "sw_2stream_fused_lm", sw_scratch),
                 ("lw", "lw_sweep", lw_scratch),
                 ("lw", "lw_sweep_lm", lw_scratch)):
             if calls[name]:
@@ -1933,7 +1978,8 @@ def main(argv) -> int:
                       "B allocated beyond the outputs (measured)")
                 if helper or extra > 1 << 20:
                     fail(f"{name}: device scratch at {L} layers")
-        per_layout[layout] = {name: replay(name, recs, layout)
+        per_layout[layout] = {LAUNCHED_AS.get(name, name):
+                              replay(name, recs, layout)
                               for name, recs in calls.items() if recs}
         del calls
     calls = record(gas_optics_call)

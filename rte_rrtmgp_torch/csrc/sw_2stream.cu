@@ -9,6 +9,11 @@
 //    l*ncol + c: entry rrtmgp_sw_2stream_lm_f32.  The TPU runs three
 //    calls (its grid carries each recurrence); here one launch runs the
 //    whole solve, as for the column-major form.
+// The fused entries rrtmgp_sw_2stream_fused_f32 / _fused_lm_f32 take the
+// gas optics as the gas-optics kernel writes them (tau_abs, tau_rayleigh)
+// and zero, one or two per-(cell, band) increments (clouds, then
+// aerosols), and form tau, ssa and g themselves (step 1 below): no
+// per-g-point plane but the two gas planes goes through device memory.
 //
 // Per (column, g-point): the Meador-Weaver gamma1-gamma4, k^2 floored at
 // k_min, rdif/tdif, r_dir/t_dir with the eps guard on 1-(k*mu0)^2 and the
@@ -17,18 +22,23 @@
 // rte_solver_kernels.cu:196-286, 543-655).  up, diffuse dn and dir are
 // summed over g into (ncol, nlev); the caller adds the direct beam to dn.
 //
-// What bounds it on the H100.  By count, bytes: tau, ssa and g (three
-// plane-sized inputs, 75.5 MB each at 2048x72x128) are read once and the
-// outputs are (ncol, nlev).  In practice, latency and instructions: the
-// recurrences over layers are serial per (column, g), and each (layer, g)
-// costs ~140 instructions of coefficients (two exp, a sqrt, three
-// reciprocals).  The working set of a (column, g) pair, nlay-deep arrays
-// that the two sweeps walk in opposite directions, stays in shared memory,
-// as the TPU kept it in VMEM: nothing of size (cell, g) goes through
-// device memory, and the serial passes touch only shared memory.
+// What bounds it on the H100.  By count, bytes: three plane-sized inputs
+// (tau, ssa, g), or two in the fused entries (tau_abs, tau_rayleigh, 0.5
+// GiB each at 4096x256x128) plus each increment's three values a (cell,
+// band), are read once, and the outputs are (ncol, nlev).  In practice,
+// latency and instructions: the recurrences over layers are serial per
+// (column, g), and each (layer, g) costs ~140 instructions of coefficients
+// (two exp, a sqrt, three reciprocals), ~15 more flops and two or three
+// divisions with the fused prologue.  The working set of a (column, g)
+// pair, nlay-deep arrays that the two sweeps walk in opposite directions,
+// stays in shared memory, as the TPU kept it in VMEM: nothing of size
+// (cell, g) goes through device memory, and the serial passes touch only
+// shared memory.
 //
 // Design.  A block owns one column and one tile of GT g-points (GT = 32,
-// 64 or 128, chosen by the wrapper); the tiles of one column form a thread
+// 64 or 128, chosen by the wrapper, with 256 threads, or 1024 where its
+// working set leaves no room for a second block on the SM: 256 layers);
+// the tiles of one column form a thread
 // block cluster whose blocks push their level partials into the rank-0
 // block's shared memory, which sums them in rank order after one cluster
 // barrier (no atomics, the same result on every run).  Shared memory holds
@@ -36,11 +46,19 @@
 // dead.  Every transcendental and division runs in one layer-parallel
 // pass; the serial passes over layers carry only the recurrences:
 //   0. cp.async brings tau, ssa and g into S0-S2 (16-byte copies where the
-//      planes allow, 4-byte otherwise), with no registers in flight;
-//   1. layer-parallel, all threads: the coefficients of every (layer, g):
-//      S0-S4 := rdif, tdif, r_dir, t_dir, t_noscat, the reciprocals by
-//      rcp below and exp(-tau/mu0) with the column's 1/mu0 (the twin
-//      divides; the results differ by an ulp or so);
+//      planes allow, 4-byte otherwise), with no registers in flight; the
+//      fused entries bring tau_abs and tau_rayleigh into S0-S1 and, with
+//      increments, the column's values of the bands the tile spans (see
+//      below);
+//   1. layer-parallel, all threads: in the fused entries first tau, ssa, g
+//      of the (layer, g) in registers (sw_optics: the plain chain's
+//      combine_abs_and_rayleigh, then increment_2str_by_2str for each
+//      increment at the g-point's band value, in its operation order with
+//      IEEE-rounded adds, multiplies and divisions, so the result is
+//      bit-equal to the planes that chain writes); then the coefficients
+//      of every (layer, g): S0-S4 := rdif, tdif, r_dir, t_dir, t_noscat,
+//      the reciprocals by rcp below and exp(-tau/mu0) with the column's
+//      1/mu0 (the twin divides; the results differ by an ulp or so);
 //   2. serial, one thread per g (its own column of the slots, so 2-4 need
 //      no barrier): the direct beam, a running product of t_noscat, over
 //      S4 in place (row l := the beam incident on layer l, row nlay := the
@@ -63,13 +81,23 @@
 // IEEE division with its range check and branch, with explicit fused
 // multiply-adds on the albedo chain (1 - rdif*alb and the new albedo).
 //
+// The band values of the fused entries.  A tile's g-points span few bands
+// (2 of 16-g bands at GT = 32), so the column's values of those bands,
+// nlay x nbt x 3 per increment (6 KB at 256 layers, nbt = 2), are copied
+// into shared memory behind the level partials in step 0, with the planes
+// and under the same wait; step 1 then reads them from shared memory (a
+// warp's lanes share two or three addresses: broadcasts).  Read in step 1
+// from device memory instead, each (layer, g) would wait on a load with
+// one block an SM (the slots take ~177 KB) and nothing to hide it.
+//
 // The global-scratch branch.  Shared memory holds NSLOT*(nlay+1)*GT floats
-// and 3*(nlay+1) level partials for each of the column's tiles.  Where that
-// exceeds the 227 KB a block may use even at the narrowest tile the
-// cluster limit allows (GT = 32: from nlay = 337 at G = 97..128, from
-// nlay = 356 at G <= 32), the wrapper passes a device scratch of that size
-// per block and the same kernel keeps its slots there (plain loads instead
-// of cp.async).  Shapes choose the branch; nothing else differs.
+// and 3*(nlay+1) level partials for each of the column's tiles (and the
+// band values).  Where that exceeds the 227 KB a block may use even at the
+// narrowest tile the cluster limit allows (GT = 32: from nlay = 337 at
+// G = 97..128, from nlay = 356 at G <= 32), the wrapper passes a device
+// scratch of that size per block and the same kernel keeps its slots there
+// (plain loads instead of cp.async).  Shapes choose the branch; nothing
+// else differs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,13 +108,96 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NSLOT = 5;
+constexpr int MAX_INC = 2;   // per-band increments a fused launch adds
+
+// The per-band increments of a fused launch: inc[i] = (tau, ssa, g) of
+// increment i, each nbnd values a cell with the cells in the planes'
+// order; band (G,) the band of each g-point of the chunk, nondecreasing;
+// nbt the most bands one g-tile spans (0 without increments).
+struct Bands {
+    const float* inc[MAX_INC][3];
+    const int* band;
+    int n;
+    int nbnd;
+    int nbt;
+};
+
+// Everything a launch reads and writes.  p0, p1, p2 are tau, ssa and g,
+// or in the fused entries tau_abs and tau_rayleigh (p2 unused).
+struct SwArgs {
+    const float* p0;
+    const float* p1;
+    const float* p2;
+    const float* mu0;
+    const float* alb_dir;
+    const float* alb_dif;
+    const float* inc_dir;
+    const float* inc_dif;
+    float* up;
+    float* dn;
+    float* dir;
+    float* scratch;
+    int ncol, nlay, G;
+    float kmin, tmin;
+    Bands bands;
+};
+
+// Floats of a fused block's band values: the tile's GT band offsets (ints),
+// then [increment][tau, ssa, g][layer][nbt] values; none without
+// increments.
+__host__ __device__ inline long long band_floats(int nlay, int gt, int ninc,
+                                                 int nbt)
+{
+    return ninc ? gt + 3LL * ninc * nbt * nlay : 0;
+}
 
 // Floats of a block's working set: NSLOT slots of (nlay+1) x gt, then the
-// level partials (up, dn, dir) of each of the column's tiles.
+// level partials (up, dn, dir) of each of the column's tiles, then the
+// band values of a fused launch (``extra``).
 __host__ __device__ inline long long block_floats(int nlay, int gt,
-                                                  int ntiles)
+                                                  int ntiles,
+                                                  long long extra)
 {
-    return ((long long)NSLOT * gt + 3LL * ntiles) * (nlay + 1);
+    return ((long long)NSLOT * gt + 3LL * ntiles) * (nlay + 1) + extra;
+}
+
+// torch.clamp(x, min=lo): NaN stays NaN.
+__device__ __forceinline__ float clamp_min(float x, float lo)
+{
+    return x < lo ? lo : x;
+}
+
+// tau, ssa, g of one (cell, g-point) from its gas optics and the band
+// values of its increments, as the plain chain computes the planes:
+// gas_optics.combine_abs_and_rayleigh, then for each increment
+// optics_ops.increment_2str_by_2str (op2 the band value).  Each step is one
+// IEEE-rounded operation in the chain's order, so the result is bit-equal.
+// v points at increment 0's tau value of the g-point's band; q the stride
+// from tau to ssa to g, n the stride from one increment to the next.
+__device__ __forceinline__ void sw_optics(float tau_abs, float tau_ray,
+                                          const float* v, int ninc,
+                                          long long q, long long n,
+                                          float eps, float& tau, float& ssa,
+                                          float& g)
+{
+    tau = __fadd_rn(tau_abs, tau_ray);
+    ssa = tau > 2.0f * eps ? __fdiv_rn(tau_ray, tau) : 0.0f;
+    g = 0.0f;
+    #pragma unroll
+    for (int i = 0; i < MAX_INC; ++i) {
+        if (i >= ninc) break;
+        const float t2 = v[i * n];
+        const float s2 = v[i * n + q];
+        const float g2 = v[i * n + 2 * q];
+        const float tau12 = __fadd_rn(tau, t2);
+        const float ts1 = __fmul_rn(tau, ssa);
+        const float ts2 = __fmul_rn(t2, s2);
+        const float tauscat12 = __fadd_rn(ts1, ts2);
+        g = __fdiv_rn(__fadd_rn(__fmul_rn(ts1, g), __fmul_rn(ts2, g2)),
+                      clamp_min(tauscat12, eps));
+        ssa = __fdiv_rn(tauscat12, clamp_min(tau12, eps));
+        tau = tau12;
+    }
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src)
@@ -156,17 +267,19 @@ __device__ __forceinline__ void level_sums(int nlev, int gw, V value,
     }
 }
 
-template <bool LM, int GT, bool GLOBAL>
-__global__ void sw_2stream_kernel(
-    const float* __restrict__ tau, const float* __restrict__ ssa,
-    const float* __restrict__ gasy, const float* __restrict__ mu0,
-    const float* __restrict__ alb_dir, const float* __restrict__ alb_dif,
-    const float* __restrict__ inc_dir, const float* __restrict__ inc_dif,
-    float* __restrict__ up, float* __restrict__ dn, float* __restrict__ dir,
-    float* __restrict__ scratch, int ncol, int nlay, int G, float kmin,
-    float tmin)
+template <bool LM, int GT, bool GLOBAL, bool FUSED>
+__global__ void __launch_bounds__(1024) sw_2stream_kernel(const SwArgs arg)
 {
     extern __shared__ __align__(16) float smem[];
+    const float* __restrict__ const tau = arg.p0;   // fused: tau_abs
+    const float* __restrict__ const ssa = arg.p1;   // fused: tau_rayleigh
+    const float* __restrict__ const gasy = arg.p2;
+    const int ncol = arg.ncol;
+    const int nlay = arg.nlay;
+    const int G = arg.G;
+    const int ninc = FUSED ? arg.bands.n : 0;
+    const int nbt = arg.bands.nbt;
+    const int* __restrict__ const band = arg.bands.band;
     // The column's tiles are one 1-D cluster of consecutive blocks: the
     // tile index is the block's rank in it.
     cg::cluster_group cluster = cg::this_cluster();
@@ -177,11 +290,13 @@ __global__ void sw_2stream_kernel(
     const int gw = min(GT, G - g0);
     const int tid = threadIdx.x;
     const int nlev = nlay + 1;
-    const long long bf = block_floats(nlay, GT, ntiles);
+    const long long bf = block_floats(
+        nlay, GT, ntiles, band_floats(nlay, GT, ninc, nbt));
 
     // The slots' address space is known at compile time, so the shared
     // branch uses shared-memory loads and stores throughout.
-    float* const work = GLOBAL ? scratch + (long long)blockIdx.x * bf : smem;
+    float* const work = GLOBAL ? arg.scratch + (long long)blockIdx.x * bf
+                               : smem;
     const int slot = nlev * GT;
     float* const S0 = work;
     float* const S1 = work + slot;
@@ -191,9 +306,14 @@ __global__ void sw_2stream_kernel(
     // Rank 0's partials [tile][up, dn, dir][nlev], where every tile of the
     // column writes its own.
     float* const part0 = GLOBAL
-        ? scratch + (long long)(blockIdx.x - rank) * bf + NSLOT * slot
+        ? arg.scratch + (long long)(blockIdx.x - rank) * bf + NSLOT * slot
         : cluster.map_shared_rank(smem, 0) + NSLOT * slot;
     float* const part = part0 + rank * 3 * nlev;
+    // This block's band values (fused, with increments): the band offset
+    // of each of its g-points, then [i][tau, ssa, g][layer][nbt].
+    int* const boff = (int*)(work + (NSLOT * GT + 3 * ntiles) * nlev);
+    float* const bval = (float*)(boff + GT);
+    const long long bq = (long long)nlay * nbt;   // tau -> ssa -> g
 
     // Row l of this tile in every plane: base + l*ls.  Column-major
     // (c*nlay + l)*G + g0; layer-major (l*ncol + c)*G + g0.
@@ -204,7 +324,8 @@ __global__ void sw_2stream_kernel(
     // of the cluster runs: arrive here, wait before the first such write.
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-    // --- 0. tau, ssa, g -> S0-S2 ---
+    // --- 0. tau, ssa, g (fused: tau_abs, tau_rayleigh and the band
+    // values) -> S0-S2 ---
     if (GLOBAL) {
         for (int e = tid; e < nlay * GT; e += blockDim.x) {
             const int l = e / GT;
@@ -213,11 +334,11 @@ __global__ void sw_2stream_kernel(
             const long long o = base + (long long)l * ls + j;
             S0[e] = tau[o];
             S1[e] = ssa[o];
-            S2[e] = gasy[o];
+            if (!FUSED) S2[e] = gasy[o];
         }
     } else if ((G & 3) == 0
-               && (((uintptr_t)tau | (uintptr_t)ssa | (uintptr_t)gasy) & 15)
-                      == 0) {
+               && (((uintptr_t)tau | (uintptr_t)ssa
+                    | (FUSED ? 0 : (uintptr_t)gasy)) & 15) == 0) {
         constexpr int Q = GT / 4;
         for (int e = tid; e < nlay * Q; e += blockDim.x) {
             const int l = e / Q;
@@ -226,7 +347,7 @@ __global__ void sw_2stream_kernel(
             const long long o = base + (long long)l * ls + j;
             cp_async16(S0 + l * GT + j, tau + o);
             cp_async16(S1 + l * GT + j, ssa + o);
-            cp_async16(S2 + l * GT + j, gasy + o);
+            if (!FUSED) cp_async16(S2 + l * GT + j, gasy + o);
         }
     } else {
         for (int e = tid; e < nlay * GT; e += blockDim.x) {
@@ -236,21 +357,58 @@ __global__ void sw_2stream_kernel(
             const long long o = base + (long long)l * ls + j;
             cp_async4(S0 + e, tau + o);
             cp_async4(S1 + e, ssa + o);
-            cp_async4(S2 + e, gasy + o);
+            if (!FUSED) cp_async4(S2 + e, gasy + o);
+        }
+    }
+    if (FUSED && ninc) {
+        // The bands blo..blo+nb-1 of the tile's g-points: nb contiguous
+        // values a cell in each of the increment's arrays.
+        const int blo = band[g0];
+        const int nb = band[g0 + gw - 1] - blo + 1;
+        if (tid < gw) boff[tid] = band[g0 + tid] - blo;
+        const long long cell0 = LM ? c : c * nlay;       // cell of layer 0
+        const long long cstep = LM ? ncol : 1;           // cells a layer
+        const int per = nlay * nb;
+        #pragma unroll
+        for (int iq = 0; iq < 3 * MAX_INC; ++iq) {
+            if (iq >= 3 * ninc) break;
+            const float* const src = arg.bands.inc[iq / 3][iq % 3];
+            float* const dst = bval + iq * bq;
+            for (int e = tid; e < per; e += blockDim.x) {
+                const int l = e / nb;
+                const int b = e - l * nb;
+                const float* s = src + (cell0 + l * cstep) * arg.bands.nbnd
+                                 + blo + b;
+                if (GLOBAL)
+                    dst[l * nbt + b] = *s;
+                else
+                    cp_async4(dst + l * nbt + b, s);
+            }
         }
     }
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
                  ::: "memory");
     __syncthreads();
 
-    // --- 1. coefficients of every (layer, g) ---
-    const float m = mu0[c];
+    // --- 1. (fused: tau, ssa, g, then) the coefficients of every
+    // (layer, g) ---
+    const float m = arg.mu0[c];
     const float minv = 1.0f / m;
+    const float kmin = arg.kmin;
+    const float tmin = arg.tmin;
     for (int e = tid; e < nlay * GT; e += blockDim.x) {
-        if (e % GT >= gw) continue;
-        const float t = S0[e];
-        const float w = S1[e];
-        const float a = S2[e];
+        const int jj = e % GT;
+        if (jj >= gw) continue;
+        float t, w, a;
+        if (FUSED) {
+            const float* v = ninc ? bval + (e / GT) * nbt + boff[jj]
+                                  : bval;
+            sw_optics(S0[e], S1[e], v, ninc, bq, 3 * bq, tmin, t, w, a);
+        } else {
+            t = S0[e];
+            w = S1[e];
+            a = S2[e];
+        }
         const float gamma1 = (8.0f - w * (5.0f + 3.0f * a)) * 0.25f;
         const float gamma2 = 3.0f * (w * (1.0f - a)) * 0.25f;
         const float gamma3 = (2.0f - 3.0f * m * a) * 0.25f;
@@ -298,7 +456,7 @@ __global__ void sw_2stream_kernel(
     if (tid < gw) {
         const int j = tid;
         // 2. direct beam, top down, over S4 in place.
-        float fdir = inc_dir[cg0 + j] * m;
+        float fdir = arg.inc_dir[cg0 + j] * m;
         auto beam = [&](int l, float t) {
             S4[l * GT + j] = fdir;
             fdir = t * fdir;
@@ -315,8 +473,8 @@ __global__ void sw_2stream_kernel(
         S4[nlay * GT + j] = fdir;
 
         // 3. adding up-sweep from the surface.
-        float alb = alb_dif[cg0 + j];
-        float src = fdir * alb_dir[cg0 + j];
+        float alb = arg.alb_dif[cg0 + j];
+        float src = fdir * arg.alb_dir[cg0 + j];
         auto adding = [&](int l, float rdif, float tdif, float r_dir,
                           float t_dir, float fd) {
             const int e = l * GT + j;
@@ -353,7 +511,7 @@ __global__ void sw_2stream_kernel(
         S3[nlay * GT + j] = src;
 
         // 4. diffuse down-sweep.
-        float d = inc_dif ? inc_dif[cg0 + j] : 0.0f;
+        float d = arg.inc_dif ? arg.inc_dif[cg0 + j] : 0.0f;
         S0[nlay * GT + j] = d;
         auto down = [&](int l, float c1, float c0) {
             d = c1 * d + c0;
@@ -385,7 +543,7 @@ __global__ void sw_2stream_kernel(
     if (GLOBAL) __threadfence();
     cluster.sync();
     if (rank == 0) {
-        float* const out[3] = {up, dn, dir};
+        float* const out[3] = {arg.up, arg.dn, arg.dir};
         for (int i = tid; i < 3 * nlev; i += blockDim.x) {
             float sum = 0.0f;
             for (int r = 0; r < ntiles; ++r)
@@ -396,28 +554,28 @@ __global__ void sw_2stream_kernel(
     }
 }
 
-template <bool LM, int GT, bool GLOBAL>
-int launch_branch(const float* tau, const float* ssa, const float* g,
-                  const float* mu0, const float* alb_dir,
-                  const float* alb_dif, const float* inc_dir,
-                  const float* inc_dif, float* up, float* dn, float* dir,
-                  float* scratch, int ncol, int nlay, int G, int threads,
-                  float kmin, float tmin, void* stream)
+template <bool LM, int GT, bool GLOBAL, bool FUSED>
+int launch_branch(const SwArgs& a, int threads, void* stream)
 {
-    const int ntiles = (G + GT - 1) / GT;
+    const int ntiles = (a.G + GT - 1) / GT;
     if (ntiles > 8 || threads < 32 || threads % 32 || threads > 1024)
         return (int)cudaErrorInvalidConfiguration;
-    const size_t smem = scratch
-        ? 0 : sizeof(float) * (size_t)block_floats(nlay, GT, ntiles);
-    auto kern = sw_2stream_kernel<LM, GT, GLOBAL>;
+    const Bands& b = a.bands;
+    if (b.n < 0 || b.n > MAX_INC || (b.n && (!b.band || b.nbnd < 1
+                                             || b.nbt < 1)))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = a.scratch
+        ? 0 : sizeof(float) * (size_t)block_floats(
+                  a.nlay, GT, ntiles, band_floats(a.nlay, GT, b.n, b.nbt));
+    auto kern = sw_2stream_kernel<LM, GT, GLOBAL, FUSED>;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    if (ncol <= 0) return (int)cudaGetLastError();
+    if (a.ncol <= 0) return (int)cudaGetLastError();
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)((long long)ncol * ntiles));
+    cfg.gridDim = dim3((unsigned)((long long)a.ncol * ntiles));
     cfg.blockDim = dim3((unsigned)threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = (cudaStream_t)stream;
@@ -428,60 +586,76 @@ int launch_branch(const float* tau, const float* ssa, const float* g,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, kern, tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up,
-        dn, dir, scratch, ncol, nlay, G, kmin, tmin);
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
-template <bool LM, int GT>
-int launch_gt(const float* tau, const float* ssa, const float* g,
-              const float* mu0, const float* alb_dir, const float* alb_dif,
-              const float* inc_dir, const float* inc_dif, float* up,
-              float* dn, float* dir, float* scratch, int ncol, int nlay,
-              int G, int threads, float kmin, float tmin, void* stream)
+template <bool LM, bool FUSED, int GT>
+int launch_gt(const SwArgs& a, int threads, void* stream)
 {
-    if (scratch)
-        return launch_branch<LM, GT, true>(
-            tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn,
-            dir, scratch, ncol, nlay, G, threads, kmin, tmin, stream);
-    return launch_branch<LM, GT, false>(
-        tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn, dir,
-        scratch, ncol, nlay, G, threads, kmin, tmin, stream);
+    if (a.scratch)
+        return launch_branch<LM, GT, true, FUSED>(a, threads, stream);
+    return launch_branch<LM, GT, false, FUSED>(a, threads, stream);
 }
 
-template <bool LM>
-int launch(const float* tau, const float* ssa, const float* g,
-           const float* mu0, const float* alb_dir, const float* alb_dif,
-           const float* inc_dir, const float* inc_dif, float* up, float* dn,
-           float* dir, float* scratch, int ncol, int nlay, int G, int gt,
-           int threads, float kmin, float tmin, void* stream)
+template <bool LM, bool FUSED>
+int launch(const SwArgs& a, int gt, int threads, void* stream)
 {
     switch (gt) {
     case 32:
-        return launch_gt<LM, 32>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
-                                 inc_dif, up, dn, dir, scratch, ncol, nlay, G,
-                                 threads, kmin, tmin, stream);
+        return launch_gt<LM, FUSED, 32>(a, threads, stream);
     case 64:
-        return launch_gt<LM, 64>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
-                                 inc_dif, up, dn, dir, scratch, ncol, nlay, G,
-                                 threads, kmin, tmin, stream);
+        return launch_gt<LM, FUSED, 64>(a, threads, stream);
     case 128:
-        return launch_gt<LM, 128>(tau, ssa, g, mu0, alb_dir, alb_dif,
-                                  inc_dir, inc_dif, up, dn, dir, scratch,
-                                  ncol, nlay, G, threads, kmin, tmin, stream);
+        return launch_gt<LM, FUSED, 128>(a, threads, stream);
     default:
         return (int)cudaErrorInvalidValue;
     }
+}
+
+SwArgs sw_args(const float* p0, const float* p1, const float* p2,
+               const float* mu0, const float* alb_dir, const float* alb_dif,
+               const float* inc_dir, const float* inc_dif, float* up,
+               float* dn, float* dir, float* scratch, int ncol, int nlay,
+               int G, float kmin, float tmin, const Bands& bands)
+{
+    SwArgs a;
+    a.p0 = p0;
+    a.p1 = p1;
+    a.p2 = p2;
+    a.mu0 = mu0;
+    a.alb_dir = alb_dir;
+    a.alb_dif = alb_dif;
+    a.inc_dir = inc_dir;
+    a.inc_dif = inc_dif;
+    a.up = up;
+    a.dn = dn;
+    a.dir = dir;
+    a.scratch = scratch;
+    a.ncol = ncol;
+    a.nlay = nlay;
+    a.G = G;
+    a.kmin = kmin;
+    a.tmin = tmin;
+    a.bands = bands;
+    return a;
+}
+
+Bands bands_of(const float* tau1, const float* ssa1, const float* g1,
+               const float* tau2, const float* ssa2, const float* g2,
+               const int* band, int ninc, int nbnd, int nbt)
+{
+    Bands b = {{{tau1, ssa1, g1}, {tau2, ssa2, g2}}, band, ninc, nbnd, nbt};
+    return b;
 }
 
 }  // namespace
 
 // gt: g-points a block (32, 64 or 128; at most 8 tiles a column); threads:
 // threads a block (a multiple of 32, at least gt); scratch: null, or
-// ncol*ceil(G/gt) blocks of block_floats(nlay, gt, ceil(G/gt)) floats for
-// the global-scratch branch.
+// ncol*ceil(G/gt) blocks of block_floats(nlay, gt, ceil(G/gt), 0) floats
+// for the global-scratch branch.
 extern "C" int rrtmgp_sw_2stream_f32(
     const float* tau, const float* ssa, const float* g, const float* mu0,
     const float* alb_dir, const float* alb_dif, const float* inc_dir,
@@ -489,9 +663,11 @@ extern "C" int rrtmgp_sw_2stream_f32(
     int ncol, int nlay, int G, int gt, int threads, float kmin, float tmin,
     void* stream)
 {
-    return launch<false>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
-                         inc_dif, up, dn, dir, scratch, ncol, nlay, G, gt,
-                         threads, kmin, tmin, stream);
+    const Bands none = {};
+    return launch<false, false>(
+        sw_args(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn,
+                dir, scratch, ncol, nlay, G, kmin, tmin, none),
+        gt, threads, stream);
 }
 
 extern "C" int rrtmgp_sw_2stream_lm_f32(
@@ -501,7 +677,49 @@ extern "C" int rrtmgp_sw_2stream_lm_f32(
     int ncol, int nlay, int G, int gt, int threads, float kmin, float tmin,
     void* stream)
 {
-    return launch<true>(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir,
-                        inc_dif, up, dn, dir, scratch, ncol, nlay, G, gt,
-                        threads, kmin, tmin, stream);
+    const Bands none = {};
+    return launch<true, false>(
+        sw_args(tau, ssa, g, mu0, alb_dir, alb_dif, inc_dir, inc_dif, up, dn,
+                dir, scratch, ncol, nlay, G, kmin, tmin, none),
+        gt, threads, stream);
+}
+
+// The fused entries: tau_abs and tau_ray in place of tau, ssa, g; ninc
+// (0-2) increments (tau1, ssa1, g1), (tau2, ssa2, g2), each nbnd values a
+// cell in the planes' cell order; band the (G,) nondecreasing band of each
+// g-point; nbt the most bands a g-tile spans; scratch: null, or
+// ncol*ceil(G/gt) blocks of block_floats(nlay, gt, ceil(G/gt),
+// band_floats(nlay, gt, ninc, nbt)) floats.  The rest as above.
+extern "C" int rrtmgp_sw_2stream_fused_f32(
+    const float* tau_abs, const float* tau_ray, const float* tau1,
+    const float* ssa1, const float* g1, const float* tau2, const float* ssa2,
+    const float* g2, const int* band, int ninc, int nbnd, int nbt,
+    const float* mu0, const float* alb_dir, const float* alb_dif,
+    const float* inc_dir, const float* inc_dif, float* up, float* dn,
+    float* dir, float* scratch, int ncol, int nlay, int G, int gt,
+    int threads, float kmin, float tmin, void* stream)
+{
+    return launch<false, true>(
+        sw_args(tau_abs, tau_ray, nullptr, mu0, alb_dir, alb_dif, inc_dir,
+                inc_dif, up, dn, dir, scratch, ncol, nlay, G, kmin, tmin,
+                bands_of(tau1, ssa1, g1, tau2, ssa2, g2, band, ninc, nbnd,
+                         nbt)),
+        gt, threads, stream);
+}
+
+extern "C" int rrtmgp_sw_2stream_fused_lm_f32(
+    const float* tau_abs, const float* tau_ray, const float* tau1,
+    const float* ssa1, const float* g1, const float* tau2, const float* ssa2,
+    const float* g2, const int* band, int ninc, int nbnd, int nbt,
+    const float* mu0, const float* alb_dir, const float* alb_dif,
+    const float* inc_dir, const float* inc_dif, float* up, float* dn,
+    float* dir, float* scratch, int ncol, int nlay, int G, int gt,
+    int threads, float kmin, float tmin, void* stream)
+{
+    return launch<true, true>(
+        sw_args(tau_abs, tau_ray, nullptr, mu0, alb_dir, alb_dif, inc_dir,
+                inc_dif, up, dn, dir, scratch, ncol, nlay, G, kmin, tmin,
+                bands_of(tau1, ssa1, g1, tau2, ssa2, g2, band, ninc, nbnd,
+                         nbt)),
+        gt, threads, stream);
 }

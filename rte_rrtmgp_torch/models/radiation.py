@@ -36,6 +36,14 @@ added (``*_clrsky_flux_*`` outputs), then on the all-sky optics, as a GCM
 computes its clear-sky diagnostics; the two solves share the chunk's
 surface and top-of-atmosphere inputs.
 
+The SW's broadband solve (no optical output) hands the gas optics
+(tau_abs, tau_rayleigh) and the per-band cloud and aerosol optics to the
+SW kernel, which combines them itself (``rte_sw``'s fused entries; their
+twin, for float64 and the CPU, is the plain chain): no tau, ssa or g
+plane is written, and the clear-sky solve is the same entry with no
+increment.  By-band or optical output combines them in plain PyTorch
+first (stages ``sw_combine``, ``sw_*_increment``).
+
 Each stage of the pipeline (``STAGES``: inputs, column gas, cloud and
 aerosol optics, interpolation, gas optics, Planck sources, optics
 combination, solve, fluxes, the clear-sky solve and fluxes) runs inside a
@@ -54,6 +62,7 @@ launches only when all its operands are float32 CUDA tensors.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import numpy as np
@@ -366,19 +375,38 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                   else rte_sw.sw_solver_2stream_broadband)
         return solver(op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa)
 
-    def solve_clear_sky(kdc, op):
-        """Solve the chunk's gas-only optics into the clear-sky
-        accumulators; returns the TOA source and albedos for the all-sky
-        solve.  Its fluxes are freed here, before the clouds are added."""
+    def two_stream_gas(tau_abs, tau_ray, incs, kdc, toa, alb_dir, alb_dif):
+        """The broadband solve from the gas optics and the per-band
+        increments ``incs``: the SW kernel forms tau, ssa and g itself."""
+        if lm:
+            return rte_sw.sw_solver_2stream_fused_broadband_lm(
+                tau_abs, tau_ray, incs, kdc.gpt2band, mu0_safe, alb_dir,
+                alb_dif, toa, ncol=ncol)
+        return rte_sw.sw_solver_2stream_fused_broadband(
+            tau_abs, tau_ray, incs, kdc.gpt2band, mu0_safe, alb_dir, alb_dif,
+            toa)
+
+    def solve_clear_sky(kdc, solve):
+        """Solve the chunk's gas-only optics (``solve`` of the boundary
+        inputs) into the clear-sky accumulators; returns the TOA source and
+        albedos for the all-sky solve.  Its fluxes are freed here, before
+        the clouds are added."""
         with _stage("sw_solve_clrsky"):
             bc = (toa_source(kdc), *albedos(kdc))
-            fluxes = two_stream(op, *bc)
+            fluxes = solve(*bc)
         with _stage("sw_fluxes_clrsky"):
             for acc, f in zip(clr, fluxes):
                 acc += f
             _build.CLRSKY_GPTS["driver"] += kdc.ngpt
         return bc
 
+    # Broadband fluxes with no optical output: the SW kernel combines the
+    # gas optics and adds the increments (clouds, then aerosols) itself
+    # (float64 and the CPU: the entry's twin, the plain chain), so the
+    # ranges sw_combine and sw_*_increment are not entered.  By-band or
+    # optical output needs the tau, ssa and g planes: the chain below.
+    fused = with_fluxes and not output_bnd_fluxes and not output_optical
+    incs = tuple(o for o in (cld, aer) if o is not None)
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
         with _stage("sw_gas_optics"):
@@ -388,31 +416,42 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
             else:
                 tau_abs, tau_ray = gas_ops.tau_majmin_and_rayleigh(
                     kdc, interp, p_lay, t_lay, col_gas, col_dry, cellw=cellw)
-        with _stage("sw_combine"):
-            tau, ssa, g = gas_ops.combine_abs_and_rayleigh(tau_abs, tau_ray)
-            op = optics_ops.OpticalProps2str(tau=tau, ssa=ssa, g=g)
-        bc = solve_clear_sky(kdc, op) if clear_sky else None
-        if with_clouds:
-            with _stage("sw_cloud_increment"):
-                op = optics_ops.increment_2str_by_2str_bybnd(op, cld,
-                                                             kdc.gpt2band)
-        if with_aerosols:
-            with _stage("sw_aerosol_increment"):
-                op = optics_ops.increment_2str_by_2str_bybnd(op, aer,
-                                                             kdc.gpt2band)
+        if fused:
+            bc = (solve_clear_sky(kdc, functools.partial(
+                two_stream_gas, tau_abs, tau_ray, (), kdc))
+                  if clear_sky else None)
+            with _stage("sw_solve"):
+                bc = bc or (toa_source(kdc), *albedos(kdc))
+                up, dn, fdir = two_stream_gas(tau_abs, tau_ray, incs, kdc,
+                                              *bc)
+        else:
+            with _stage("sw_combine"):
+                tau, ssa, g = gas_ops.combine_abs_and_rayleigh(tau_abs,
+                                                               tau_ray)
+                op = optics_ops.OpticalProps2str(tau=tau, ssa=ssa, g=g)
+            bc = (solve_clear_sky(kdc, functools.partial(two_stream, op))
+                  if clear_sky else None)
+            if with_clouds:
+                with _stage("sw_cloud_increment"):
+                    op = optics_ops.increment_2str_by_2str_bybnd(
+                        op, cld, kdc.gpt2band)
+            if with_aerosols:
+                with _stage("sw_aerosol_increment"):
+                    op = optics_ops.increment_2str_by_2str_bybnd(
+                        op, aer, kdc.gpt2band)
 
-        with _stage("sw_solve"):
-            if bc is None:
-                toa = toa_source(kdc)
-                if output_optical:
-                    optical["sw_tau"].append(op.tau)
-                    optical["ssa"].append(op.ssa)
-                    optical["g"].append(op.g)
-                    optical["toa_source"].append(toa)
-                if not with_fluxes:
-                    continue
-                bc = (toa, *albedos(kdc))
-            up, dn, fdir = two_stream(op, *bc)
+            with _stage("sw_solve"):
+                if bc is None:
+                    toa = toa_source(kdc)
+                    if output_optical:
+                        optical["sw_tau"].append(op.tau)
+                        optical["ssa"].append(op.ssa)
+                        optical["g"].append(op.g)
+                        optical["toa_source"].append(toa)
+                    if not with_fluxes:
+                        continue
+                    bc = (toa, *albedos(kdc))
+                up, dn, fdir = two_stream(op, *bc)
         with _stage("sw_fluxes"):
             if not output_bnd_fluxes:
                 flux_up = flux_up + up

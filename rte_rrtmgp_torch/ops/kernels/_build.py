@@ -59,6 +59,12 @@ SIGNATURES = {
     "rrtmgp_sw_2stream_lm_f32": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _P),
+    "rrtmgp_sw_2stream_fused_f32": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "rrtmgp_sw_2stream_fused_lm_f32": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 # Launches of each kernel, counted by its wrapper where it launches.
@@ -77,13 +83,20 @@ MINOR_SCALED = {"gas_optics_interp": 0}
 # (256 LW + 224 SW).
 CLRSKY_GPTS = {"driver": 0}
 
+# G-points whose SW optics (the gas optics combined, the per-band
+# increments added) a launch of the SW kernel's fused entries formed
+# itself, summed over its launches: 224 a step of the published tables
+# (448 with ``clear_sky=True``, two launches a chunk), 0 where the plain
+# chain writes the planes (by-band or optical output, float64, the twins).
+SW_FUSED_GPTS = {"sw_2stream": 0}
+
 _state = {"lib": None, "info": None}
 
 
 def reset_launch_counts() -> None:
-    """Zero :data:`LAUNCHES`, :data:`MINOR_SCALED` and
-    :data:`CLRSKY_GPTS`."""
-    for counts in (LAUNCHES, MINOR_SCALED, CLRSKY_GPTS):
+    """Zero :data:`LAUNCHES`, :data:`MINOR_SCALED`, :data:`CLRSKY_GPTS`
+    and :data:`SW_FUSED_GPTS`."""
+    for counts in (LAUNCHES, MINOR_SCALED, CLRSKY_GPTS, SW_FUSED_GPTS):
         for k in counts:
             counts[k] = 0
 
@@ -102,6 +115,12 @@ def clrsky_gpts() -> int:
     """G-points solved clear-sky since the last
     :func:`reset_launch_counts`."""
     return CLRSKY_GPTS["driver"]
+
+
+def sw_fused_gpts() -> int:
+    """G-points whose SW optics a launch of the SW kernel formed itself
+    since the last :func:`reset_launch_counts`."""
+    return SW_FUSED_GPTS["sw_2stream"]
 
 
 def _nvcc() -> str:

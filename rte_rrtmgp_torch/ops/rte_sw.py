@@ -11,6 +11,10 @@ albedo and source accumulation) and the diffuse down-sweep.
 card it is one launch of the hand-written kernel ``csrc/sw_2stream.cu``.
 :func:`sw_solver_2stream_broadband_lm` does the same on layer-major
 (nlay*ncol, G) planes (cell (c, l) at row l*ncol + c).
+:func:`sw_solver_2stream_fused_broadband` and its layer-major form take the
+gas optics (tau_abs, tau_rayleigh) and the per-band increments in place
+of the planes: on the card the same kernel forms tau, ssa and g itself,
+and the twin is the plain chain :func:`sw_optics_plain`.
 
 Canonical orientation: top of atmosphere at layer index 0.
 """
@@ -153,3 +157,67 @@ def sw_solver_2stream_broadband_lm(tau_lm, ssa_lm, g_lm, mu0, sfc_alb_dir,
     return _kern.sw_2stream_lm(tau_lm, ssa_lm, g_lm, mu0, sfc_alb_dir,
                                sfc_alb_dif, inc_flux_dir, inc_flux_dif,
                                ncol=ncol)
+
+
+def sw_optics_plain(tau_abs, tau_ray, increments, gpt2band):
+    """tau, ssa and g planes from the gas optics and per-band increments,
+    as the plain chain computes them (the fused kernel entries' twin):
+    ``gas_optics.combine_abs_and_rayleigh``, then
+    ``optics_ops.increment_2str_by_2str_bybnd`` for each increment in turn
+    (clouds, then aerosols).  Any cell shape: (ncol, nlay) or layer-major
+    (nlay*ncol,)."""
+    from ..models.types import OpticalProps2str
+    from .gas_optics import combine_abs_and_rayleigh
+    from .optics_ops import increment_2str_by_2str_bybnd
+
+    op = OpticalProps2str(*combine_abs_and_rayleigh(tau_abs, tau_ray))
+    for inc in increments:
+        op = increment_2str_by_2str_bybnd(op, inc, gpt2band)
+    return op
+
+
+def sw_2stream_fused_plain(tau_abs, tau_ray, increments, gpt2band, mu0,
+                           sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+                           inc_flux_dif=None):
+    """Plain twin of the fused SW kernel entry: :func:`sw_optics_plain`,
+    then :func:`sw_2stream_plain`."""
+    op = sw_optics_plain(tau_abs, tau_ray, increments, gpt2band)
+    return sw_2stream_plain(op.tau, op.ssa, op.g, mu0, sfc_alb_dir,
+                            sfc_alb_dif, inc_flux_dir, inc_flux_dif)
+
+
+def sw_2stream_fused_lm_plain(tau_abs, tau_ray, increments, gpt2band, mu0,
+                              sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+                              inc_flux_dif=None, *, ncol: int):
+    """Plain twin of the fused layer-major SW kernel entry:
+    :func:`sw_optics_plain` on the layer-major planes, then
+    :func:`sw_2stream_lm_plain`."""
+    op = sw_optics_plain(tau_abs, tau_ray, increments, gpt2band)
+    return sw_2stream_lm_plain(op.tau, op.ssa, op.g, mu0, sfc_alb_dir,
+                               sfc_alb_dif, inc_flux_dir, inc_flux_dif,
+                               ncol=ncol)
+
+
+def sw_solver_2stream_fused_broadband(tau_abs, tau_ray, increments, gpt2band,
+                                      mu0, sfc_alb_dir, sfc_alb_dif,
+                                      inc_flux_dir, inc_flux_dif=None):
+    """Broadband SW solve from the gas optics: tau_abs and tau_ray
+    (ncol, nlay, G) and up to two per-band increments (``.tau``, ``.ssa``,
+    ``.g`` each (ncol, nlay, nbnd)) added at each g-point's band
+    ``gpt2band``.  One kernel launch on the card, which forms tau, ssa and
+    g itself.  Returns up, dn (diffuse + direct), dir each
+    (ncol, nlay+1)."""
+    return _kern.sw_2stream_fused(tau_abs, tau_ray, increments, gpt2band,
+                                  mu0, sfc_alb_dir, sfc_alb_dif,
+                                  inc_flux_dir, inc_flux_dif)
+
+
+def sw_solver_2stream_fused_broadband_lm(tau_abs, tau_ray, increments,
+                                         gpt2band, mu0, sfc_alb_dir,
+                                         sfc_alb_dif, inc_flux_dir,
+                                         inc_flux_dif=None, *, ncol: int):
+    """:func:`sw_solver_2stream_fused_broadband` on layer-major planes:
+    tau_abs and tau_ray (nlay*ncol, G), the increments (nlay*ncol, nbnd)."""
+    return _kern.sw_2stream_fused_lm(tau_abs, tau_ray, increments, gpt2band,
+                                     mu0, sfc_alb_dir, sfc_alb_dif,
+                                     inc_flux_dir, inc_flux_dif, ncol=ncol)

@@ -5,8 +5,9 @@ gpt_chunk 128 unless ``--gpt-chunk`` says otherwise, float32):
 * the LW sweep (B2 ``lw_sweep``, B6 ``lw_sweep_lm``): g-points a block (a
   column's cluster of blocks); in a checkout whose LW kernel has no such
   choice (copied into a parent's), the kernel as built;
-* the SW two-stream solve (B3 ``sw_2stream``, B7 ``sw_2stream_lm``): g-tile
-  width x threads a block;
+* the SW two-stream solve (B3 and B7, through the fused entries
+  ``sw_2stream_fused`` / ``sw_2stream_fused_lm`` that the step calls):
+  g-tile width x threads a block;
 * the gas-optics interpolation (B1 ``gas_optics_interp``): cells a block x
   threads a block, in the default and the layer-major layout.
 
@@ -134,8 +135,9 @@ def main(argv) -> int:
     tables = step.build_tables(GPT_PER_BAND, dtype=torch.float32, device=dev)
     arrs = step.atmos_arrays(NCOL, NLAY, seed=0)
     args = [torch.as_tensor(arrs[k], device=dev) for k in step.ARG_NAMES]
-    targets = [(k_interp, "gas_optics_interp"), (k_solvers, "sw_2stream"),
-               (k_solvers, "sw_2stream_lm"), (k_solvers, "lw_sweep"),
+    targets = [(k_interp, "gas_optics_interp"),
+               (k_solvers, "sw_2stream_fused"),
+               (k_solvers, "sw_2stream_fused_lm"), (k_solvers, "lw_sweep"),
                (k_solvers, "lw_sweep_lm")]
     calls = {}
     for layout, kw in (("default", {}), ("layer_major",
@@ -163,19 +165,21 @@ def main(argv) -> int:
     del refs
 
     # ---- SW two-stream: tile x threads ----
-    twins = {"sw_2stream": rte_sw.sw_2stream_plain,
-             "sw_2stream_lm": rte_sw.sw_2stream_lm_plain}
-    sw_recs = {"sw_2stream": calls["default"]["sw_2stream"],
-               "sw_2stream_lm": calls["layer_major"]["sw_2stream_lm"]}
+    twins = {"sw_2stream_fused": rte_sw.sw_2stream_fused_plain,
+             "sw_2stream_fused_lm": rte_sw.sw_2stream_fused_lm_plain}
+    sw_recs = {"sw_2stream_fused": calls["default"]["sw_2stream_fused"],
+               "sw_2stream_fused_lm":
+                   calls["layer_major"]["sw_2stream_fused_lm"]}
     refs = {name: [twins[name](*a, **kw) for a, kw in recs]
             for name, recs in sw_recs.items()} if "sw" in which else {}
     for gt in k_solvers.SW_TILES:
-        for threads in (64, 128, 256, 512):
+        for threads in (64, 128, 256, 512, 1024):
             if threads < gt:
                 continue
             for name in refs:
                 with patched((k_solvers, "SW_TILE", gt),
-                             (k_solvers, "SW_THREADS", threads)):
+                             (k_solvers, "SW_THREADS", threads),
+                             (k_solvers, "SW_THREADS_ALONE", threads)):
                     if not time_variant(f"{name} gt={gt} threads={threads}",
                                         getattr(k_solvers, name),
                                         sw_recs[name], refs[name], results):

@@ -288,7 +288,9 @@ def test_no_fluxes_under_layer_major_runs_no_solver(case, monkeypatch,
     for mod, names in ((rte_lw, ("lw_solver_noscat", "lw_solver_noscat_broadband",
                                  "lw_solver_noscat_broadband_lm")),
                        (rte_sw, ("sw_solver_2stream", "sw_solver_2stream_broadband",
-                                 "sw_solver_2stream_broadband_lm"))):
+                                 "sw_solver_2stream_broadband_lm",
+                                 "sw_solver_2stream_fused_broadband",
+                                 "sw_solver_2stream_fused_broadband_lm"))):
         for name in names:
             monkeypatch.setattr(mod, name,
                                 lambda *a, _n=name, **kw: calls.append(_n))

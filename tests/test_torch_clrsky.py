@@ -3,8 +3,9 @@ at the tiny size of ``benchmark/tests/tiny.py`` (8 columns x 12 layers, 2
 g-points a band, the benchmark's published-shape tables), in each
 layout: its all-sky fluxes bit-equal to those of ``clear_sky=False``, its
 clear-sky fluxes held to the benchmark's plain reference and to the
-program's own all-sky call without clouds, one gas-optics pass a chunk,
-the clear-sky g-point counter, and the refused combinations."""
+program's own all-sky call without clouds, one gas-optics pass a chunk
+feeding the SW's fused entry twice (no increment, then the clouds), the
+clear-sky g-point counter, and the refused combinations."""
 
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from rte_rrtmgp_torch import step
 from rte_rrtmgp_torch.models.cloud_lut import CloudLUT
 from rte_rrtmgp_torch.models.kdist import KDist
 from rte_rrtmgp_torch.models.radiation import _solve_lw_impl, _solve_sw_impl
-from rte_rrtmgp_torch.ops import gas_optics, kernels
+from rte_rrtmgp_torch.ops import gas_optics, kernels, rte_sw
 
 torch.set_num_threads(2)
 
@@ -109,10 +110,23 @@ def test_clrsky_equals_allsky_without_clouds_f64(case, layout):
         assert float((got[c] - ref[k]).abs().max()) <= 1e-5, c
 
 
+def _count_fused(monkeypatch, layout):
+    """The number of increments of each call of the layout's fused SW
+    entry."""
+    name = ("sw_solver_2stream_fused_broadband_lm" if layout == "layer_major"
+            else "sw_solver_2stream_fused_broadband")
+    fused, incs = getattr(rte_sw, name), []
+    monkeypatch.setattr(rte_sw, name, lambda *a, **k: (
+        incs.append(len(a[2])), fused(*a, **k))[1])
+    return incs
+
+
 @pytest.mark.parametrize("clear_sky", [False, True], ids=["off", "on"])
 def test_one_gas_optics_pass_a_chunk(case, monkeypatch, clear_sky):
     """The gas-optics entry points run once a chunk, with or without the
-    clear-sky solves, and ``clrsky_gpts`` counts every g-point of both
+    clear-sky solves; the SW solves take the chunk's gas optics through
+    the fused entry, the clear-sky one with no increment and the all-sky
+    one with the clouds; ``clrsky_gpts`` counts every g-point of both
     spectra once a clear-sky call."""
     raws, atm = case
     calls = {}
@@ -124,15 +138,31 @@ def test_one_gas_optics_pass_a_chunk(case, monkeypatch, clear_sky):
             return _fn(*a, **k)
 
         monkeypatch.setattr(gas_optics, name, counted)
+    incs = _count_fused(monkeypatch, "default")
     _, args = _args(atm, torch.float32)
     kernels.reset_launch_counts()
     _run(raws, args, torch.float32, "default", clear_sky)
     ngpt_lw, ngpt_sw = TINY["ngpt_lw"], TINY["ngpt_sw"]
     assert calls == {"tau_majmin_and_pfrac": -(-ngpt_lw // CHUNK),
                      "tau_majmin_and_rayleigh": -(-ngpt_sw // CHUNK)}
+    assert incs == ([0, 1] if clear_sky else [1]) * -(-ngpt_sw // CHUNK)
     assert kernels.clrsky_gpts() == (ngpt_lw + ngpt_sw if clear_sky else 0)
     kernels.reset_launch_counts()
     assert kernels.clrsky_gpts() == 0
+
+
+@pytest.mark.parametrize("clear_sky", [False, True], ids=["off", "on"])
+def test_layer_major_sw_solves_through_fused_entry(case, monkeypatch,
+                                                   clear_sky):
+    """The layer-major SW solves too take the chunk's gas optics through
+    the fused entry: no increment clear-sky, the clouds all-sky."""
+    raws, atm = case
+    incs = _count_fused(monkeypatch, "layer_major")
+    _, args = _args(atm, torch.float32)
+    out = _run(raws, args, torch.float32, "layer_major", clear_sky)
+    nchunks = -(-TINY["ngpt_sw"] // CHUNK)
+    assert incs == ([0, 1] if clear_sky else [1]) * nchunks
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
 
 
 @pytest.mark.parametrize("flag,value", [("output_bnd_fluxes", True),

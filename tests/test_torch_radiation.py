@@ -264,7 +264,8 @@ def test_solve_layouts_match_jax(options_case, monkeypatch, longwave,
     """The broadband fluxes of each layout (broadband output only, so that
     layer-major applies) against the JAX solve of the same inputs, which
     runs its XLA path for every layout on the CPU.  rtol 1e-10; each case
-    checks which path ran."""
+    checks which path ran: the SW solves from the gas optics through the
+    fused entries (their twin in float64)."""
     from rte_rrtmgp_torch.ops import gas_optics as go, rte_lw, rte_sw
     cellw, layer_major = LAYOUTS[layout]
     solver, kw, ref = options_case[longwave]
@@ -272,12 +273,16 @@ def test_solve_layouts_match_jax(options_case, monkeypatch, longwave,
                           else "tau_major_and_rayleigh")
     lm = _count_calls(monkeypatch, rte_lw if longwave else rte_sw,
                       "lw_solver_noscat_broadband_lm" if longwave
-                      else "sw_solver_2stream_broadband_lm")
+                      else "sw_solver_2stream_fused_broadband_lm")
+    cm = _count_calls(monkeypatch, rte_lw if longwave else rte_sw,
+                      "lw_solver_noscat_broadband" if longwave
+                      else "sw_solver_2stream_fused_broadband")
     got = solver.solve(**dict(kw, output_bnd_fluxes=False,
                               output_optical=False),
                        cellw=cellw, layer_major=layer_major)
     nchunks = -(-solver.kdist.ngpt // kw["gpt_chunk"])
     assert len(lm) == (nchunks if layout == "layer_major" else 0)
+    assert len(cm) == (0 if layout == "layer_major" else nchunks)
     assert len(planes) == (0 if cellw else nchunks)
     bb = [k for k in ref if "_bnd_" not in k and k.split("_")[0] in ("lw", "sw")
           and "flux" in k]

@@ -39,8 +39,8 @@ Phases (any failure ends the run with a nonzero exit):
 5. The user's path at the RCEMIP extent (in ``build/chip_cli``): the
    ``rcemip`` case generated by ``cases.inputs.make_case_files`` (4096
    columns x 256 layers, clouds, classic NetCDF), the tables loaded from
-   it, the layout the environment and the tuned winner resolve for this
-   card (with the LW and SW launch geometry: one 256-g LW chunk takes the
+   it, the launches a solve makes in the solvers' default layout (with
+   the LW and SW launch geometry: one 256-g LW chunk takes the
    sweep's device-scratch branch at 256 layers), then ``cli.main``
    broadband (``--cloud-optics --delta-cloud --timings 3``), the same with
    the plain twins, and by band (``--output-bnd-fluxes``), each held to
@@ -112,7 +112,7 @@ Phases (any failure ends the run with a nonzero exit):
    (the ``allsky`` and ``aerosky`` cases through the CLI in CPU float64,
    CPU float32 and card float32, the card within 0.7 W m-2 of the CPU's
    float32, each card run's B1-B3 launches held to the exact counts of the
-   CLI's resolved layout at ``gpt_chunk`` 64; the aerosol optics on the
+   default layout at ``gpt_chunk`` 64; the aerosol optics on the
    card); ``profile_stages`` at the flagship shape in the three layouts
    and at 4096x256 in the default layout: the step profiled, the card's
    time by the driver's stage ranges, their sum between 90% and 100% of
@@ -295,20 +295,19 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
     """The user's path at the RCEMIP extent: generate the case, run the CLI
     (broadband, with the plain twins, by band), check the files, run the
     RFMIP sweep.  Each run's launch counts are set to 0 just before it and
-    held to the exact counts of the layout it resolved just after.  One
+    held to the exact counts of the default layout just after.  One
     more broadband run is recorded and its kernel launches replayed against
     their twins at the CLI's shapes (``record`` / ``replay`` / ``lw_scratch``
     of ``main``)."""
     import numpy as np
     import torch
 
-    from rte_rrtmgp_torch import cli, config
+    from rte_rrtmgp_torch import cli
     from rte_rrtmgp_torch.cases import check, inputs, rfmip
     from rte_rrtmgp_torch.cases.profiles import make_atmosphere
     from rte_rrtmgp_torch.models import CloudLUT, KDist
     from rte_rrtmgp_torch.ops import kernels
     from rte_rrtmgp_torch.ops.kernels import solvers as k_solvers
-    from rte_rrtmgp_torch.utils import tuner
     from rte_rrtmgp_torch.utils.ncio import NcReader
 
     os.makedirs(CLI_DIR, exist_ok=True)
@@ -330,16 +329,8 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
     print(f"[cli] table load (LW + SW k-distributions and cloud tables from "
           f"NetCDF onto the card): {(time.perf_counter() - t0) * 1e3:.1f} ms")
 
-    env = {k: os.environ.get(k) for k in ("RTE_RRTMGP_PALLAS_CELLW",
-                                           "RTE_RRTMGP_LAYERMAJOR")}
-    cellw = config.cellw_enabled(dev)
-    lm = cellw and config.layer_major_enabled(dev)
-    layout = "layer_major" if lm else ("default" if cellw else "cellw_off")
-    per_solve = expected_launches(kd_lw, kd_sw, None)
-    print(f"[cli] layout resolved for {tuner.device_kind(dev)}: {layout} "
-          f"(cellw {cellw}, layer_major {lm}; environment {env}, tuned "
-          f"winner {tuner.best_kernel_opts(dev)}); launches per LW + SW "
-          f"solve {per_solve[layout]}")
+    per_solve = expected_launches(kd_lw, kd_sw, None)["default"]
+    print(f"[cli] launches per LW + SW solve (default layout): {per_solve}")
     geo = k_solvers.lw_geometry(ncol, nlay, kd_lw.ngpt)
     print(f"[lw] cli {ncol}x{nlay} G={kd_lw.ngpt} (one chunk): "
           f"{geo.describe()}")
@@ -360,14 +351,12 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
     calls = record(lambda: cli.main(files + ["--output", out["recorded"]]
                                     + clouds))
     got = recorded(calls)
-    if got != per_solve[layout]:
-        fail(f"cli recorded run: launches {got}, expected {per_solve[layout]}")
-    for name in ("lw_sweep", "lw_sweep_lm"):
-        if calls[name]:
-            extra, helper, C, L, G = lw_scratch(name, *calls[name][0])
-            print(f"[lw] cli {name} device scratch at {C}x{L} G={G}: {helper} "
-                  f"B by the wrapper's geometry, {extra} B allocated beyond "
-                  "the outputs (measured)")
+    if got != per_solve:
+        fail(f"cli recorded run: launches {got}, expected {per_solve}")
+    extra, helper, C, L, G = lw_scratch("lw_sweep", *calls["lw_sweep"][0])
+    print(f"[lw] cli lw_sweep device scratch at {C}x{L} G={G}: {helper} "
+          f"B by the wrapper's geometry, {extra} B allocated beyond the "
+          "outputs (measured)")
     for name, recs in calls.items():
         if recs:
             replay(name, recs, "cli")
@@ -394,12 +383,10 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
         if rc != 0 or got != expected:
             fail(f"cli {name}: rc {rc}, launches {got}, expected {expected}")
 
-    run("broadband", clouds, scaled(per_solve[layout], 1 + CLI_TIMINGS),
+    run("broadband", clouds, scaled(per_solve, 1 + CLI_TIMINGS),
         CLI_TIMINGS)
     run("plain", clouds, {}, patch=twins)
-    gas_only = {k: v for k, v in per_solve[
-        "cellw_off" if layout == "cellw_off" else "default"].items()
-        if k in ("gas_optics_interp", "interp_rows_multi", "interp_rows")}
+    gas_only = {"gas_optics_interp": per_solve["gas_optics_interp"]}
     run("bybnd", clouds + ["--output-bnd-fluxes"],
         scaled(gas_only, 1 + CLI_TIMINGS), CLI_TIMINGS)
 
@@ -433,7 +420,7 @@ def cli_phase(dev, twins, record, replay, lw_scratch):
     path = rfmip.run(CLI_DIR, n_experiments=RFMIP_EXPERIMENTS, device=dev)
     dt = time.perf_counter() - t0
     got = {k: v for k, v in kernels.launch_counts().items() if v}
-    expected = scaled(per_solve[layout], RFMIP_EXPERIMENTS)
+    expected = scaled(per_solve, RFMIP_EXPERIMENTS)
     print(f"[rfmip] {RFMIP_EXPERIMENTS} experiments x 100 sites x 60 layers "
           f"(float32, clear sky): {dt * 1e3 / RFMIP_EXPERIMENTS:.1f} ms per "
           "experiment (host clock over the whole run, tables loaded and "
@@ -477,7 +464,7 @@ def tracer_phase(dev, card, record, replay):
     import numpy as np
     import torch
 
-    from rte_rrtmgp_torch import cli_rt, cli_rt_lite, config
+    from rte_rrtmgp_torch import cli_rt, cli_rt_lite
     from rte_rrtmgp_torch.cases import inputs
     from rte_rrtmgp_torch.cases.profiles import make_atmosphere
     from rte_rrtmgp_torch.data import synthetic
@@ -583,27 +570,9 @@ def tracer_phase(dev, card, record, replay):
           f"{RT_NZ} layers, rt grid nz {RT_NZ} knull (4,4,4), dz {dz:.2f} m; "
           f"files {time.perf_counter() - t0:.2f} s")
     gases = make_atmosphere(1, RT_NZ)["gas_concs"].names()
-    kd_lw = KDist.from_netcdf(paths["coefs_lw"], gases, device=dev)
     kd_sw = KDist.from_netcdf(paths["coefs_sw"], gases, device=dev)
     band = kd_sw.gpt2band[RT_GPT - 1]
-    cellw = config.cellw_enabled(dev)
-    lm = cellw and config.layer_major_enabled(dev)
-
-    def gas(kd):
-        if cellw:
-            return {"gas_optics_interp": 1}
-        minor = bool(kd.minor_lower or kd.minor_upper)
-        return {"interp_rows_multi": 1, **({"interp_rows": 1} if minor else {})}
-
-    def add(*ds):
-        out = {}
-        for d in ds:
-            for k, v in d.items():
-                out[k] = out.get(k, 0) + v
-        return out
-
-    sw_counts = gas(kd_sw.slice_gpt(RT_GPT - 1, RT_GPT))
-    lw_counts = add(gas(kd_lw), {"lw_sweep_lm" if lm else "lw_sweep": 1})
+    sw_counts = {"gas_optics_interp": 1}
     files = ["--input", paths["input"], "--coefs-sw", paths["coefs_sw"],
              "--coefs-lw", paths["coefs_lw"], "--cloud-sw", paths["cloud_sw"],
              "--cloud-lw", paths["cloud_lw"], "--mie-file", mie]
@@ -612,13 +581,13 @@ def tracer_phase(dev, card, record, replay):
     runs = {
         "cloudy": (["--cloud-optics", "--delta-cloud"], sw_counts),
         "cloudy_longwave": (["--cloud-optics", "--delta-cloud", "--longwave"],
-                            add(sw_counts, lw_counts)),
+                            {"gas_optics_interp": 2, "lw_sweep": 1}),
         "mie": (["--cloud-mie", "--liq-cloud-optics", "--delta-cloud"],
                 sw_counts),
         "clear": ([], sw_counts),
     }
     print(f"{tag} cli_rt flags {' '.join(base)} (g-point {RT_GPT}, band "
-          f"{band + 1}); layout cellw {cellw}, layer_major {lm}")
+          f"{band + 1})")
     timing = {}
     orig_pass1 = radiation_rt._pass1
     orig_solve = radiation_rt.RadiationSolverRT.solve
@@ -762,7 +731,7 @@ def bw_phase(dev, card, record, replay):
     import numpy as np
     import torch
 
-    from rte_rrtmgp_torch import cli_bw, cli_rt_lite, config
+    from rte_rrtmgp_torch import cli_bw, cli_rt_lite
     from rte_rrtmgp_torch.cases import inputs
     from rte_rrtmgp_torch.cases.profiles import make_atmosphere
     from rte_rrtmgp_torch.models import CloudLUT, KDist
@@ -876,12 +845,7 @@ def bw_phase(dev, card, record, replay):
           f"files {time.perf_counter() - t0:.2f} s")
     gases = make_atmosphere(1, nlay)["gas_concs"].names()
     kd = KDist.from_netcdf(paths["coefs_sw"], gases, device=dev)
-    if config.cellw_enabled(dev):
-        expected = {"gas_optics_interp": 1}
-    else:
-        expected = {"interp_rows_multi": 1,
-                    **({"interp_rows": 1} if kd.minor_lower or kd.minor_upper
-                       else {})}
+    expected = {"gas_optics_interp": 1}
     files = ["--input", paths["input"], "--coefs-sw", paths["coefs_sw"],
              "--cloud-sw", paths["cloud_sw"]]
     # The broadband run takes the CLI's defaults (scan, one window) with
@@ -1129,7 +1093,6 @@ def mesh_phase(dev, card, tables, args):
     tag = "[mesh]"
     t_phase = time.perf_counter()
     kd_lw, kd_sw, cl_lw, cl_sw = tables
-    layout = LAYOUTS["default"]
 
     def launches_of(fn):
         kernels.reset_launch_counts()
@@ -1146,12 +1109,12 @@ def mesh_phase(dev, card, tables, args):
         if got != want:
             fail(f"{what}: launches {got} != {want}")
 
-    one = step.make_step(*tables, gpt_chunk=GPT_CHUNK, **layout)
+    one = step.make_step(*tables, gpt_chunk=GPT_CHUNK)
     ref, _ = launches_of(lambda: one(*args))
     runs = {"unsharded": one}
     for shape in ((4,), (2, 2)):
         mesh = make_mesh(shape, devices=[dev] * 4)
-        run = sharded_step(mesh, *tables, gpt_chunk=GPT_CHUNK, **layout)
+        run = sharded_step(mesh, *tables, gpt_chunk=GPT_CHUNK)
         want = {}
         slices = zip(shard_kdist(kd_lw, mesh).local(),
                      shard_kdist(kd_sw, mesh).local())
@@ -1182,7 +1145,7 @@ def mesh_phase(dev, card, tables, args):
     common = dict(gas_concs=atm["gas_concs"], p_lay=atm["p_lay"],
                   p_lev=atm["p_lev"], t_lay=atm["t_lay"], lwp=atm["lwp"],
                   iwp=atm["iwp"], rel=atm["rel"], dei=atm["dei"],
-                  gpt_chunk=GPT_CHUNK, **layout)
+                  gpt_chunk=GPT_CHUNK)
     n_lw = expected_launches(kd_lw, kd_sw, GPT_CHUNK)["default"]["lw_sweep"]
     n_sw = expected_launches(kd_lw, kd_sw, GPT_CHUNK)["default"]["sw_2stream"]
     lw, sw = RadiationSolverLW(kd_lw, cl_lw), RadiationSolverSW(kd_sw, cl_sw)
@@ -1220,7 +1183,7 @@ def mesh_phase(dev, card, tables, args):
     gmesh = dist.make_global_mesh()
     arrs = step.atmos_arrays(NCOL, NLAY, seed=0)
     local = tuple(arrs[k] for k in step.ARG_NAMES)
-    gout = sharded_step(gmesh, *tables, gpt_chunk=GPT_CHUNK, **layout)(
+    gout = sharded_step(gmesh, *tables, gpt_chunk=GPT_CHUNK)(
         dist.host_shard_columns(gmesh, local))
     sums = slab_sums(gout, 0)
     torch.distributed.all_reduce(sums)
@@ -1294,7 +1257,7 @@ def mesh_phase(dev, card, tables, args):
         a = [torch.as_tensor(small[k], device=where) for k in step.ARG_NAMES]
         a[4].requires_grad_()
         a[11].requires_grad_()
-        out = step.make_step(*tabs, gpt_chunk=GPT_CHUNK, **layout)(*a)
+        out = step.make_step(*tabs, gpt_chunk=GPT_CHUNK)(*a)
         loss = out["lw_flux_up"][:, -1].sum() + out["sw_flux_dn"][:, 0].sum()
         grads.append([g.cpu() for g in
                       torch.autograd.grad(loss, (a[4], a[11]))])
@@ -1381,9 +1344,8 @@ def dtype_phase(dev, card, record, replay, paths, cli_broadband):
     def pair(tables, dtype):
         """An LW + SW solve (the default layout, one chunk a spectrum)."""
         lw, sw = tabs[tables]
-        layout = LAYOUTS["default"]
-        out = lw.solve(**common, **lw_kw, dtype=dtype, **layout)
-        out.update(sw.solve(**common, **sw_kw, dtype=dtype, **layout))
+        out = lw.solve(**common, **lw_kw, dtype=dtype)
+        out.update(sw.solve(**common, **sw_kw, dtype=dtype))
         return out
 
     def counted(fn):
@@ -1460,14 +1422,11 @@ def dtype_phase(dev, card, record, replay, paths, cli_broadband):
     torch.cuda.empty_cache()
 
     # (d) the walkthroughs on the card.
-    cellw = config.cellw_enabled(dev)
-    lm = cellw and config.layer_major_enabled(dev)
-    layout = "layer_major" if lm else ("default" if cellw else "cellw_off")
     t0 = time.perf_counter()
     res, got = counted(lambda: basic_usage.main(dev))
-    want = expected_launches(res["kd_lw"], res["kd_sw"], None)[layout]
+    want = expected_launches(res["kd_lw"], res["kd_sw"], None)["default"]
     print(f"{tag} basic_usage: {time.perf_counter() - t0:.2f} s; launches "
-          f"{got} (the two float32 solves in the {layout} layout: {want}; "
+          f"{got} (the two float32 solves in the default layout: {want}; "
           "the float64 gradient through the twins: none)")
     if got != want:
         fail(f"basic_usage launches {got}, expected {want}")
@@ -1485,25 +1444,21 @@ def dtype_phase(dev, card, record, replay, paths, cli_broadband):
 
     t0 = time.perf_counter()
     res, got = counted(lambda: multichip_sharding.main(dev))
-    solver_of = {"default": "lw_sweep", "cellw_off": "lw_sweep",
-                 "layer_major": "lw_sweep_lm"}[layout]
-    gas_of = "interp_rows_multi" if layout == "cellw_off" else \
-        "gas_optics_interp"
     n = 1 + res["shards"]
     print(f"{tag} multichip_sharding: {time.perf_counter() - t0:.2f} s; "
           f"{res['shards']} shards; launches {got} (1 + {res['shards']} LW "
           "solves, one chunk each)")
-    if got.get(gas_of) != n or got.get(solver_of) != n:
-        fail(f"multichip_sharding launches {got}: expected {gas_of} and "
-             f"{solver_of} {n} times")
+    if got.get("gas_optics_interp") != n or got.get("lw_sweep") != n:
+        fail(f"multichip_sharding launches {got}: expected gas_optics_interp "
+             f"and lw_sweep {n} times")
     del res
 
     t0 = time.perf_counter()
     res, got = counted(lambda: raytrace_3d.main(dev))
     print(f"{tag} raytrace_3d: {time.perf_counter() - t0:.2f} s; launches "
           f"{got} (pass 1's gas optics)")
-    if not got.get(gas_of):
-        fail(f"raytrace_3d: no {gas_of} launch ({got})")
+    if not got.get("gas_optics_interp"):
+        fail(f"raytrace_3d: no gas_optics_interp launch ({got})")
     del res
     print(f"{tag} phase 9: {time.perf_counter() - t_phase:.1f} s; card {card}")
 
@@ -1536,7 +1491,6 @@ def tools_phase(dev, card, tables, args):
     # ---- crosscheck: allsky and aerosky, card f32 against the CPU ----
     t0 = time.perf_counter()
     res = crosscheck.run(os.path.join(TOOLS_DIR, "crosscheck"), device=dev)
-    layout = profile_stages.layout_name(dev)
     gases = make_atmosphere(1, 72)["gas_concs"].names()
     for case in crosscheck.CASES:
         r = res[case]
@@ -1544,13 +1498,13 @@ def tools_phase(dev, card, tables, args):
             TOOLS_DIR, "crosscheck", case, f"coefficients_{s}.nc"), gases,
             device=dev) for s in ("lw", "sw"))
         expected = {k: v for k, v in expected_launches(
-            kd_lw, kd_sw, 64)[layout].items() if v}
+            kd_lw, kd_sw, 64)["default"].items() if v}
         got = r["launches"]
         print(f"{tag} crosscheck {case}: card f32 vs CPU f32 (W m-2) " + ", ".join(
             f"{k}={v:.3e}" for k, v in r["dev_vs_cpu_f32"].items()))
         print(f"{tag} crosscheck {case}: CPU f32 vs CPU f64 (W m-2) " + ", ".join(
             f"{k}={v:.3e}" for k, v in r["cpu_f32_vs_f64"].items()))
-        print(f"{tag} crosscheck {case}: launches {got} (layout {layout}, "
+        print(f"{tag} crosscheck {case}: launches {got} (default layout, "
               f"expected on the card {expected})")
         if got["dev_f32"] != expected or got["cpu_f64"] or got["cpu_f32"]:
             fail(f"crosscheck {case}: launches {got}, expected {expected} "

@@ -12,15 +12,13 @@ Kernel dispatch is by tensor device and dtype: a float32 CUDA tensor goes
 through the hand-written kernels of ``ops/kernels``, a CPU or float64
 tensor through their plain PyTorch twins (the JAX package's rule: Pallas
 for float32, XLA for float64).  There is no switch that turns the kernels off on the card.
-The two layout switches below choose WHICH kernels a step runs
-(:func:`cellw_enabled`, :func:`layer_major_enabled`): the environment, else
-the winner the tuner persisted for the device kind, else the default.
+Which kernels a step runs (its layout) is the caller's ``cellw`` /
+``layer_major`` argument (``models/radiation.py``).
 """
 
 from __future__ import annotations
 
 import math
-import os
 
 import torch
 
@@ -58,35 +56,6 @@ SOLAR_B_OFFSET = 0.00066696
 # Surface Planck-source Jacobian temperature perturbation
 # (src_kernels_cuda/gas_optics_rrtmgp_kernels_launchers.cu:474).
 DELTA_TSURF = 1.0
-
-
-def _layout_flag(env_name: str, tuned_key: str, default: bool,
-                 device) -> bool:
-    """Environment > persisted tuner winner for ``device``'s kind >
-    ``default`` (the JAX package's order, ``ops/gas_optics.py:355-373``)."""
-    env = os.environ.get(env_name)
-    if env is not None:
-        return env not in ("0", "false", "off")
-    from .utils import tuner
-
-    tuned = (tuner.best_kernel_opts(device) or {}).get(tuned_key)
-    return default if tuned is None else bool(tuned)
-
-
-def cellw_enabled(device=None) -> bool:
-    """Gas optics from per-cell weights resolved in-kernel (the default
-    kernel, ``csrc/gas_optics_interp.cu``) rather than from precomputed
-    per-g weight planes (``csrc/interp_rows.cu``).
-    ``RTE_RRTMGP_PALLAS_CELLW``, else the tuned winner's ``cellw`` for
-    ``device`` (``None``: the default device), else on."""
-    return _layout_flag("RTE_RRTMGP_PALLAS_CELLW", "cellw", True, device)
-
-
-def layer_major_enabled(device=None) -> bool:
-    """Layer-major (nlay*ncol, G) planes from the gas optics into the
-    layer-major solver kernels.  ``RTE_RRTMGP_LAYERMAJOR``, else the tuned
-    winner's ``layermajor`` for ``device``, else off."""
-    return _layout_flag("RTE_RRTMGP_LAYERMAJOR", "layermajor", False, device)
 
 
 def resolve_device(device=None) -> torch.device:

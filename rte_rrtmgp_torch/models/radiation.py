@@ -12,10 +12,9 @@
   atmosphere at layer index 0; inputs in the opposite orientation are
   flipped in and the outputs flipped back.
 
-Three layouts of the same function, chosen by ``cellw`` and
-``layer_major`` (``None``: the environment, then the tuned winner for the
-tables' device, then the default; ``config.cellw_enabled`` /
-``config.layer_major_enabled``).  On the card every chunk makes
+Three layouts of the same function, chosen by the caller's ``cellw`` and
+``layer_major`` (default: cellw on, layer-major off) and decided once a
+call (``_Layout``).  On the card every chunk makes
 
 * default (cellw on, layer-major off): one launch of the per-cell-weight
   gas-optics kernel, then one LW sweep launch per Gauss angle or one SW
@@ -41,8 +40,9 @@ The SW's broadband solve (no optical output) hands the gas optics
 SW kernel, which combines them itself (``rte_sw``'s fused entries; their
 twin, for float64 and the CPU, is the plain chain): no tau, ssa or g
 plane is written, and the clear-sky solve is the same entry with no
-increment.  By-band or optical output combines them in plain PyTorch
-first (stages ``sw_combine``, ``sw_*_increment``).
+increment.  By-band or optical output forms the planes in plain PyTorch
+first (``rte_sw.sw_optics_plain``, stage ``sw_combine``), then runs the
+by-band solver or B3's plane entry.
 
 Each stage of the pipeline (``STAGES``: inputs, column gas, cloud and
 aerosol optics, interpolation, gas optics, Planck sources, optics
@@ -62,14 +62,13 @@ launches only when all its operands are float32 CUDA tensors.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import config
-from ..ops.kernels import _build
 from ..ops import (aerosol_optics as aero_ops, cloud_optics as cloud_ops,
                    fluxes as flux_ops, gas_optics as gas_ops,
                    optics_ops, rte_lw, rte_sw)
@@ -93,8 +92,7 @@ def _flip_lay(a):
 STAGES = tuple(f"{s}_{n}" for s in ("lw", "sw") for n in (
     "inputs", "col_gas", "cloud_optics", "interpolation", "layer_major",
     "gas_optics", "solve", "fluxes", "solve_clrsky", "fluxes_clrsky")) + (
-    "lw_planck", "lw_cloud_add", "sw_aerosol_optics", "sw_combine",
-    "sw_cloud_increment", "sw_aerosol_increment")
+    "lw_planck", "lw_cloud_add", "sw_aerosol_optics", "sw_combine")
 
 
 def _stage(name: str):
@@ -105,17 +103,78 @@ def _stage(name: str):
     return contextlib.nullcontext()
 
 
-def _layouts(kd: KDist, cellw, layer_major, broadband_only: bool):
-    """(cellw, lm): ``None`` resolved for the tables' device (environment,
-    then the tuned winner, then the default); layer-major applies only with
-    cellw on, fluxes wanted and broadband output only, and a k-distribution
-    with minor intervals (the JAX package's predicate)."""
-    cellw = config.cellw_enabled(kd.device) if cellw is None else bool(cellw)
-    layer_major = (config.layer_major_enabled(kd.device) if layer_major is None
-                   else bool(layer_major))
-    lm = (layer_major and cellw and broadband_only
-          and bool(kd.minor_lower or kd.minor_upper))
-    return cellw, lm
+# G-points solved on the gas-only optics by clear-sky calls
+# (``clear_sky=True``), added once a spectral chunk in every layout, on the
+# card and off it: 480 a step of the published tables (256 LW + 224 SW).
+_CLRSKY_GPTS = [0]
+
+
+def clrsky_gpts(reset: bool = False) -> int:
+    """G-points solved clear-sky since the last ``clrsky_gpts(reset=True)``,
+    which also zeroes the count."""
+    n = _CLRSKY_GPTS[0]
+    if reset:
+        _CLRSKY_GPTS[0] = 0
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """One solve's layout (module docstring), decided once a call: ``cellw``
+    picks the gas-optics kernel, ``lm`` the layer-major cell order (cell
+    (c, l) at row l*ncol + c of (N, G) planes) over (ncol, nlay, G).  It
+    owns every step that differs between the layouts."""
+
+    cellw: bool
+    lm: bool
+    ncol: int
+    nlay: int
+
+    @classmethod
+    def of(cls, kd: KDist, p_lay, cellw: bool, layer_major: bool,
+           broadband_only: bool) -> "_Layout":
+        """Layer-major applies only with cellw on, fluxes wanted and
+        broadband output only, and a k-distribution with minor intervals
+        (the JAX package's predicate)."""
+        lm = (layer_major and cellw and broadband_only
+              and bool(kd.minor_lower or kd.minor_upper))
+        return cls(bool(cellw), bool(lm), *p_lay.shape)
+
+    def order(self, spectrum: str, gas_in: tuple, optics: tuple):
+        """The gas optics' inputs (interp, p_lay, t_lay, col_gas) and the
+        per-band ``optics`` (each None or of (ncol, nlay, nbnd) fields) in
+        the layout's cell order; layer-major converts them in the range
+        ``<spectrum>_layer_major``."""
+        if not self.lm:
+            return gas_in, optics
+        cells = lambda o: None if o is None else type(o)(*(
+            gas_ops._cells(getattr(o, f.name), "lm")
+            for f in dataclasses.fields(o)))
+        with _stage(f"{spectrum}_layer_major"):
+            return (tuple(map(gas_ops.layer_major, gas_in)),
+                    tuple(map(cells, optics)))
+
+    def gas_optics(self, fn, kdc: KDist, gas_in: tuple, *args):
+        """``fn`` (``gas_optics.tau_majmin_and_pfrac`` / ``_rayleigh``) on
+        one spectral chunk: its two planes in the layout's order (the
+        kernel run on layer-major inputs writes (nlay, ncol, G))."""
+        planes = fn(kdc, *gas_in, *args, cellw=self.cellw)
+        if self.lm:
+            return tuple(a.reshape(self.nlay * self.ncol, -1) for a in planes)
+        return planes
+
+    def planck(self, kdc: KDist, t_lay, t_lev, t_sfc, pfrac):
+        if self.lm:
+            return gas_ops.planck_source_lm(kdc, t_lay, t_lev, t_sfc,
+                                            sfc_lay=self.nlay - 1,
+                                            pfrac_lm=pfrac, ncol=self.ncol)
+        return gas_ops.planck_source(kdc, None, t_lay, t_lev, t_sfc,
+                                     sfc_lay=self.nlay - 1, pfrac=pfrac)
+
+    def broadband(self, solver, solver_lm):
+        """The broadband solver entry that reads the layout's planes."""
+        return (functools.partial(solver_lm, ncol=self.ncol) if self.lm
+                else solver)
 
 
 def _refuse_clear_sky(clear_sky: bool, output_bnd_fluxes: bool,
@@ -138,11 +197,12 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
                    *, top_at_1: bool, gpt_chunk, output_bnd_fluxes: bool,
                    n_gauss_angles: int, with_clouds: bool,
                    output_optical: bool = False, with_fluxes: bool = True,
-                   cellw: Optional[bool] = None,
-                   layer_major: Optional[bool] = None,
+                   cellw: bool = True, layer_major: bool = False,
                    clear_sky: bool = False):
     _refuse_clear_sky(clear_sky, output_bnd_fluxes, output_optical,
                       with_fluxes)
+    layout = _Layout.of(kd, p_lay, cellw, layer_major, with_fluxes
+                        and not output_bnd_fluxes and not output_optical)
     with _stage("lw_inputs"):
         if not top_at_1:
             p_lay, t_lay, vmr, col_dry = map(_flip_lay,
@@ -175,41 +235,23 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
         interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("lw_tau", "lay_source", "lev_source",
                                "sfc_source")} if output_optical else None
-    cellw, lm = _layouts(kd, cellw, layer_major, with_fluxes
-                         and not output_bnd_fluxes and not output_optical)
-    if lm:
-        # Layer-major: the gas-optics kernel runs on (nlay, ncol) inputs and
-        # writes (nlay, ncol, G) = the (N, G) planes the solver reads.
-        with _stage("lw_layer_major"):
-            lm_in = tuple(map(gas_ops.layer_major,
-                              (interp, p_lay, t_lay, col_gas)))
-            cld_tau = gas_ops._cells(cld.tau, "lm") if with_clouds else None
-    elif with_clouds:
-        cld_tau = cld.tau
+    gas_in, (cld,) = layout.order("lw", (interp, p_lay, t_lay, col_gas),
+                                  (cld,))
+    # Broadband only: the sweep kernel sums over g-points itself and never
+    # materializes (ncol, nlev, ngpt).
+    solver = (rte_lw.lw_solver_noscat if output_bnd_fluxes else
+              layout.broadband(rte_lw.lw_solver_noscat_broadband,
+                               rte_lw.lw_solver_noscat_broadband_lm))
+    sweep = lambda tau, src, bc: solver(tau, src.lay_src, src.lev_src, *bc,
+                                        n_gauss_angles=n_gauss_angles)[:2]
 
     def surface(kdc, src):
         """The chunk's surface emissivity and sources by g-point, and its
         incident flux: the solve's inputs besides the optics."""
         emis_gpt = flux_ops.expand_bands_to_gpt(emis_sfc, kdc.gpt2band)
         inc = new(ncol, kdc.ngpt)
-        if lm:
-            return emis_gpt, src.sfc_src, src.sfc_src_jac, inc
         return (emis_gpt, src.sfc_src.contiguous(),
                 src.sfc_src_jac.contiguous(), inc)
-
-    def sweep(tau, src, bc):
-        if lm:
-            up, dn, _ = rte_lw.lw_solver_noscat_broadband_lm(
-                tau, src.lay_src, src.lev_src, *bc, ncol=ncol,
-                n_gauss_angles=n_gauss_angles)
-        else:
-            # Broadband only: the sweep kernel sums over g-points itself
-            # and never materializes (ncol, nlev, ngpt).
-            solver = (rte_lw.lw_solver_noscat if output_bnd_fluxes
-                      else rte_lw.lw_solver_noscat_broadband)
-            up, dn, _ = solver(tau, src.lay_src, src.lev_src, *bc,
-                               n_gauss_angles=n_gauss_angles)
-        return up, dn
 
     def solve_clear_sky(kdc, tau, src):
         """Solve the chunk's gas-only optics into the clear-sky
@@ -221,36 +263,25 @@ def _solve_lw_impl(kd: KDist, cloud_lut, p_lay, p_lev, t_lay, t_lev, t_sfc,
         with _stage("lw_fluxes_clrsky"):
             for acc, f in zip(clr, fluxes):
                 acc += f
-            _build.CLRSKY_GPTS["driver"] += kdc.ngpt
+            _CLRSKY_GPTS[0] += kdc.ngpt
         return bc
 
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
         with _stage("lw_gas_optics"):
-            if lm:
-                tau, pfrac = (a.reshape(nlay * ncol, g1 - g0) for a in
-                              gas_ops.tau_majmin_and_pfrac(kdc, *lm_in))
-            else:
-                tau, pfrac = gas_ops.tau_majmin_and_pfrac(
-                    kdc, interp, p_lay, t_lay, col_gas, cellw=cellw)
+            tau, pfrac = layout.gas_optics(gas_ops.tau_majmin_and_pfrac, kdc,
+                                           gas_in)
         with _stage("lw_planck"):
-            if lm:
-                src = gas_ops.planck_source_lm(
-                    kdc, t_lay, t_lev, t_sfc, sfc_lay=nlay - 1,
-                    pfrac_lm=pfrac, ncol=ncol)
-            else:
-                src = gas_ops.planck_source(kdc, interp, t_lay, t_lev, t_sfc,
-                                            sfc_lay=nlay - 1, pfrac=pfrac)
+            src = layout.planck(kdc, t_lay, t_lev, t_sfc, pfrac)
         bc = solve_clear_sky(kdc, tau, src) if clear_sky else None
         if with_clouds:
             with _stage("lw_cloud_add"):
-                tau = tau + flux_ops.expand_bands_to_gpt(cld_tau,
+                tau = tau + flux_ops.expand_bands_to_gpt(cld.tau,
                                                          kdc.gpt2band)
         if output_optical:
-            optical["lw_tau"].append(tau)
-            optical["lay_source"].append(src.lay_src)
-            optical["lev_source"].append(src.lev_src)
-            optical["sfc_source"].append(src.sfc_src)
+            for k, v in zip(optical, (tau, src.lay_src, src.lev_src,
+                                      src.sfc_src)):
+                optical[k].append(v)
         if not with_fluxes:
             continue
 
@@ -296,11 +327,16 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
                    with_clouds: bool, with_aerosols: bool,
                    delta_cloud: bool, delta_aerosol: bool,
                    output_optical: bool = False, with_fluxes: bool = True,
-                   cellw: Optional[bool] = None,
-                   layer_major: Optional[bool] = None,
+                   cellw: bool = True, layer_major: bool = False,
                    clear_sky: bool = False):
     _refuse_clear_sky(clear_sky, output_bnd_fluxes, output_optical,
                       with_fluxes)
+    # Broadband fluxes with no optical output: the SW kernel combines the
+    # gas optics and adds the increments (clouds, then aerosols) itself
+    # (float64 and the CPU: the entry's twin, the plain chain).  By-band or
+    # optical output needs the tau, ssa and g planes: ``sw_optics_plain``.
+    fused = with_fluxes and not output_bnd_fluxes and not output_optical
+    layout = _Layout.of(kd, p_lay, cellw, layer_major, fused)
     with _stage("sw_inputs"):
         if not top_at_1:
             p_lay, t_lay, vmr, col_dry = map(_flip_lay,
@@ -347,17 +383,13 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
         interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
     optical = {k: [] for k in ("sw_tau", "ssa", "g", "toa_source")} \
         if output_optical else None
-    cellw, lm = _layouts(kd, cellw, layer_major, with_fluxes
-                         and not output_bnd_fluxes and not output_optical)
-    if lm:
-        with _stage("sw_layer_major"):
-            lm_in = tuple(map(gas_ops.layer_major,
-                              (interp, p_lay, t_lay, col_gas)))
-            to_lm2 = lambda o: optics_ops.OpticalProps2str(
-                tau=gas_ops._cells(o.tau, "lm"),
-                ssa=gas_ops._cells(o.ssa, "lm"), g=gas_ops._cells(o.g, "lm"))
-            cld = to_lm2(cld) if with_clouds else cld
-            aer = to_lm2(aer) if with_aerosols else aer
+    gas_in, (cld, aer) = layout.order("sw", (interp, p_lay, t_lay, col_gas),
+                                      (cld, aer))
+    incs = tuple(o for o in (cld, aer) if o is not None)
+    fused_solve = layout.broadband(rte_sw.sw_solver_2stream_fused_broadband,
+                                   rte_sw.sw_solver_2stream_fused_broadband_lm)
+    plane_solve = (rte_sw.sw_solver_2stream if output_bnd_fluxes
+                   else rte_sw.sw_solver_2stream_broadband)
 
     def toa_source(kdc):
         return (kdc.solar_source[None, :] * tsi_scaling[:, None]).to(dtype)
@@ -366,92 +398,50 @@ def _solve_sw_impl(kd: KDist, cloud_lut, aerosol_lut,
         return tuple(flux_ops.expand_bands_to_gpt(a, kdc.gpt2band)
                      for a in (sfc_alb_dir, sfc_alb_dif))
 
-    def two_stream(op, toa, alb_dir, alb_dif):
-        if lm:
-            return rte_sw.sw_solver_2stream_broadband_lm(
-                op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa,
-                ncol=ncol)
-        solver = (rte_sw.sw_solver_2stream if output_bnd_fluxes
-                  else rte_sw.sw_solver_2stream_broadband)
-        return solver(op.tau, op.ssa, op.g, mu0_safe, alb_dir, alb_dif, toa)
+    def boundary(kdc):
+        """The chunk's albedos and TOA source: the solve's inputs besides
+        the optics."""
+        toa = toa_source(kdc)
+        return (*albedos(kdc), toa)
 
-    def two_stream_gas(tau_abs, tau_ray, incs, kdc, toa, alb_dir, alb_dif):
-        """The broadband solve from the gas optics and the per-band
-        increments ``incs``: the SW kernel forms tau, ssa and g itself."""
-        if lm:
-            return rte_sw.sw_solver_2stream_fused_broadband_lm(
-                tau_abs, tau_ray, incs, kdc.gpt2band, mu0_safe, alb_dir,
-                alb_dif, toa, ncol=ncol)
-        return rte_sw.sw_solver_2stream_fused_broadband(
-            tau_abs, tau_ray, incs, kdc.gpt2band, mu0_safe, alb_dir, alb_dif,
-            toa)
-
-    def solve_clear_sky(kdc, solve):
-        """Solve the chunk's gas-only optics (``solve`` of the boundary
-        inputs) into the clear-sky accumulators; returns the TOA source and
-        albedos for the all-sky solve.  Its fluxes are freed here, before
-        the clouds are added."""
+    def solve_clear_sky(kdc, tau_abs, tau_ray):
+        """Solve the chunk's gas-only optics (no increment) into the
+        clear-sky accumulators; returns the boundary inputs for the all-sky
+        solve.  Its fluxes are freed here, before the clouds are added."""
         with _stage("sw_solve_clrsky"):
-            bc = (toa_source(kdc), *albedos(kdc))
-            fluxes = solve(*bc)
+            bc = boundary(kdc)
+            fluxes = fused_solve(tau_abs, tau_ray, (), kdc.gpt2band,
+                                 mu0_safe, *bc)
         with _stage("sw_fluxes_clrsky"):
             for acc, f in zip(clr, fluxes):
                 acc += f
-            _build.CLRSKY_GPTS["driver"] += kdc.ngpt
+            _CLRSKY_GPTS[0] += kdc.ngpt
         return bc
 
-    # Broadband fluxes with no optical output: the SW kernel combines the
-    # gas optics and adds the increments (clouds, then aerosols) itself
-    # (float64 and the CPU: the entry's twin, the plain chain), so the
-    # ranges sw_combine and sw_*_increment are not entered.  By-band or
-    # optical output needs the tau, ssa and g planes: the chain below.
-    fused = with_fluxes and not output_bnd_fluxes and not output_optical
-    incs = tuple(o for o in (cld, aer) if o is not None)
     for g0, g1 in _chunks(kd.ngpt, gpt_chunk):
         kdc = kd.slice_gpt(g0, g1)
         with _stage("sw_gas_optics"):
-            if lm:
-                tau_abs, tau_ray = (a.reshape(nlay * ncol, g1 - g0) for a in
-                                    gas_ops.tau_majmin_and_rayleigh(kdc, *lm_in))
-            else:
-                tau_abs, tau_ray = gas_ops.tau_majmin_and_rayleigh(
-                    kdc, interp, p_lay, t_lay, col_gas, col_dry, cellw=cellw)
+            tau_abs, tau_ray = layout.gas_optics(
+                gas_ops.tau_majmin_and_rayleigh, kdc, gas_in, col_dry)
         if fused:
-            bc = (solve_clear_sky(kdc, functools.partial(
-                two_stream_gas, tau_abs, tau_ray, (), kdc))
-                  if clear_sky else None)
+            bc = solve_clear_sky(kdc, tau_abs, tau_ray) if clear_sky else None
             with _stage("sw_solve"):
-                bc = bc or (toa_source(kdc), *albedos(kdc))
-                up, dn, fdir = two_stream_gas(tau_abs, tau_ray, incs, kdc,
-                                              *bc)
+                up, dn, fdir = fused_solve(tau_abs, tau_ray, incs,
+                                           kdc.gpt2band, mu0_safe,
+                                           *(bc or boundary(kdc)))
         else:
             with _stage("sw_combine"):
-                tau, ssa, g = gas_ops.combine_abs_and_rayleigh(tau_abs,
-                                                               tau_ray)
-                op = optics_ops.OpticalProps2str(tau=tau, ssa=ssa, g=g)
-            bc = (solve_clear_sky(kdc, functools.partial(two_stream, op))
-                  if clear_sky else None)
-            if with_clouds:
-                with _stage("sw_cloud_increment"):
-                    op = optics_ops.increment_2str_by_2str_bybnd(
-                        op, cld, kdc.gpt2band)
-            if with_aerosols:
-                with _stage("sw_aerosol_increment"):
-                    op = optics_ops.increment_2str_by_2str_bybnd(
-                        op, aer, kdc.gpt2band)
-
+                op = rte_sw.sw_optics_plain(tau_abs, tau_ray, incs,
+                                            kdc.gpt2band)
             with _stage("sw_solve"):
-                if bc is None:
-                    toa = toa_source(kdc)
-                    if output_optical:
-                        optical["sw_tau"].append(op.tau)
-                        optical["ssa"].append(op.ssa)
-                        optical["g"].append(op.g)
-                        optical["toa_source"].append(toa)
-                    if not with_fluxes:
-                        continue
-                    bc = (toa, *albedos(kdc))
-                up, dn, fdir = two_stream(op, *bc)
+                toa = toa_source(kdc)
+                if output_optical:
+                    for k, v in zip(optical, (op.tau, op.ssa, op.g, toa)):
+                        optical[k].append(v)
+                if not with_fluxes:
+                    continue
+                up, dn, fdir = plane_solve(op.tau, op.ssa, op.g, mu0_safe,
+                                           *albedos(kdc), toa)
         with _stage("sw_fluxes"):
             if not output_bnd_fluxes:
                 flux_up = flux_up + up
@@ -581,8 +571,8 @@ class RadiationSolverLW(_SolverBase):
               gpt_chunk: Optional[int] = None, output_bnd_fluxes: bool = False,
               n_gauss_angles: int = 1, dtype=None,
               output_optical: bool = False, with_fluxes: bool = True,
-              check_inputs: bool = True, cellw: Optional[bool] = None,
-              layer_major: Optional[bool] = None, mesh=None) -> dict:
+              check_inputs: bool = True, cellw: bool = True,
+              layer_major: bool = False, mesh=None) -> dict:
         """emis_sfc: (ncol, nbnd) surface emissivity per band.  Runs on the
         k-distribution's device in ``dtype`` (module docstring; ``None``:
         the dtype of ``p_lay``, so pass ``dtype=torch.float32`` with a
@@ -592,7 +582,7 @@ class RadiationSolverLW(_SolverBase):
         cloudy-sky path when provided.  ``with_fluxes=False`` skips the
         solve (optical output only); ``check_inputs=False`` skips the range
         checks.  ``cellw`` / ``layer_major`` choose the layout (module
-        docstring; ``None``: environment, tuned winner, default).
+        docstring).
 
         ``mesh``: a cols-only ``parallel.Mesh`` runs the whole single-device
         pipeline, kernels included, on each column slab under its device
@@ -642,14 +632,13 @@ class RadiationSolverSW(_SolverBase):
               delta_cloud: bool = False, delta_aerosol: bool = False,
               dtype=None, output_optical: bool = False,
               with_fluxes: bool = True, check_inputs: bool = True,
-              cellw: Optional[bool] = None,
-              layer_major: Optional[bool] = None, mesh=None) -> dict:
+              cellw: bool = True, layer_major: bool = False,
+              mesh=None) -> dict:
         """sfc_alb_*: (ncol, nbnd); mu0: (ncol,); aermr: (ncol, nlay, 11).
         Runs on the k-distribution's device.  ``dtype``, ``with_fluxes`` and
         ``check_inputs`` as in :meth:`RadiationSolverLW.solve`; ``cellw`` /
-        ``layer_major`` choose the layout (module docstring; ``None``:
-        environment, tuned winner, default); ``mesh``: a cols-only mesh
-        runs the solve on each column slab (see
+        ``layer_major`` choose the layout (module docstring); ``mesh``: a
+        cols-only mesh runs the solve on each column slab (see
         :meth:`RadiationSolverLW.solve`)."""
         dtype = self._dtype(dtype, p_lay)
         if check_inputs:

@@ -5,8 +5,7 @@ Port of ``rte_rrtmgp_tpu/models/radiation_bw.py``, the equivalent of
 (``src_test/Radiation_solver_bw.cu:960-1120``, ``src_cuda_rt/Raytracer_bw.cu``):
 
 * gas optics once for all g-points, over spectral chunks (on the card each
-  chunk is one launch of the gas-optics kernel, ``csrc/gas_optics_interp.cu``;
-  with ``cellw`` off, the weight-plane kernels of ``csrc/interp_rows.cu``),
+  chunk is one launch of the gas-optics kernel, ``csrc/gas_optics_interp.cu``),
   cloud and aerosol optics with optional delta scaling;
 * the spectral render loop over (g-point x sub-interval) steps with
   per-step scalars (Planck weight, XYZ colour factors, mean Rayleigh cross
@@ -38,7 +37,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import config
 from ..ops import aerosol_optics as aero_ops
 from ..ops import cloud_optics as cloud_ops
 from ..ops import gas_optics as gas_ops
@@ -136,13 +134,12 @@ def gas_planes(kd: KDist, p_lay, t_lay, vmr, col_dry, gpt_chunk=None):
     play_f, tlay_f, col_dry_f = flip(p_lay), flip(t_lay), flip(col_dry)
     col_gas = gas_ops.build_col_gas(flip(vmr), col_dry_f)
     interp = gas_ops.interpolation(kd, play_f, tlay_f, col_gas)
-    cellw = config.cellw_enabled(kd.device)
     taus, ssas = [], []
     step = gpt_chunk or kd.ngpt
     for g0 in range(0, kd.ngpt, step):
         kdc = kd.slice_gpt(g0, min(g0 + step, kd.ngpt))
         t, r = gas_ops.tau_majmin_and_rayleigh(kdc, interp, play_f, tlay_f,
-                                               col_gas, col_dry_f, cellw=cellw)
+                                               col_gas)
         tt, ss, _ = gas_ops.combine_abs_and_rayleigh(t, r)
         taus.append(flip(tt))
         ssas.append(flip(ss))

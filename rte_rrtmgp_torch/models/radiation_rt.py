@@ -38,7 +38,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import config
 from ..ops import aerosol_optics as aero_ops
 from ..ops import cloud_optics as cloud_ops
 from ..ops import fluxes as flux_ops
@@ -93,7 +92,6 @@ def _pass1(kd: KDist, p_lay, t_lay, vmr, col_dry, sfc_alb_dir, sfc_alb_dif,
     dtype, dev = p_lay.dtype, p_lay.device
     col_gas = gas_ops.build_col_gas(vmr, col_dry)
     interp = gas_ops.interpolation(kd, p_lay, t_lay, col_gas)
-    cellw = config.cellw_enabled(kd.device)
     zeros = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
     ts = (zeros(ncol, nlay + 1),) * 3 if with_twostream else None
     bnd_ts = ((zeros(ncol, nlay + 1, nbnd),) * 3
@@ -103,7 +101,7 @@ def _pass1(kd: KDist, p_lay, t_lay, vmr, col_dry, sfc_alb_dir, sfc_alb_dif,
     for g0 in range(0, kd.ngpt, step):
         kdc = kd.slice_gpt(g0, min(g0 + step, kd.ngpt))
         tau_abs, tau_ray = gas_ops.tau_majmin_and_rayleigh(
-            kdc, interp, p_lay, t_lay, col_gas, col_dry, cellw=cellw)
+            kdc, interp, p_lay, t_lay, col_gas)
         tau_g, ssa_g, _ = gas_ops.combine_abs_and_rayleigh(tau_abs, tau_ray)
         if want_planes:
             tau_parts.append(_flip(tau_g))

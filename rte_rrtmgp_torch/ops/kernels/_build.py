@@ -72,31 +72,23 @@ LAUNCHES = {"gas_optics_interp": 0, "interp_rows_multi": 0, "interp_rows": 0,
             "lw_sweep": 0, "sw_2stream": 0, "lw_sweep_lm": 0,
             "sw_2stream_lm": 0}
 
-# Minor intervals whose scaling the gas-optics kernel computed from the
-# cells' inputs, summed over its launches: 134 a step of the published
-# tables (38 + 36 LW, 34 + 26 SW intervals, each in one spectral chunk).
-MINOR_SCALED = {"gas_optics_interp": 0}
-
-# G-points solved on the gas-only optics by a clear-sky call
-# (``clear_sky=True``), added by the driver once a spectral chunk in every
-# layout, on the card and off it: 480 a step of the published tables
-# (256 LW + 224 SW).
-CLRSKY_GPTS = {"driver": 0}
-
-# G-points whose SW optics (the gas optics combined, the per-band
-# increments added) a launch of the SW kernel's fused entries formed
-# itself, summed over its launches: 224 a step of the published tables
-# (448 with ``clear_sky=True``, two launches a chunk), 0 where the plain
-# chain writes the planes (by-band or optical output, float64, the twins).
-SW_FUSED_GPTS = {"sw_2stream": 0}
+# What the launches did besides launching, summed over them:
+# ``minor_scaled``, the minor intervals whose scaling the gas-optics kernel
+# computed from the cells' inputs (134 a step of the published tables:
+# 38 + 36 LW, 34 + 26 SW intervals, each in one spectral chunk);
+# ``sw_fused_gpts``, the g-points whose SW optics (the gas optics combined,
+# the per-band increments added) a launch of the SW kernel's fused entries
+# formed itself (224 a step of the published tables, 448 with
+# ``clear_sky=True``; 0 where the plain chain writes the planes: by-band
+# or optical output, float64, the twins).
+WORK = {"minor_scaled": 0, "sw_fused_gpts": 0}
 
 _state = {"lib": None, "info": None}
 
 
 def reset_launch_counts() -> None:
-    """Zero :data:`LAUNCHES`, :data:`MINOR_SCALED`, :data:`CLRSKY_GPTS`
-    and :data:`SW_FUSED_GPTS`."""
-    for counts in (LAUNCHES, MINOR_SCALED, CLRSKY_GPTS, SW_FUSED_GPTS):
+    """Zero :data:`LAUNCHES` and :data:`WORK`."""
+    for counts in (LAUNCHES, WORK):
         for k in counts:
             counts[k] = 0
 
@@ -108,19 +100,13 @@ def launch_counts() -> dict:
 def minor_scaled() -> int:
     """Minor intervals scaled inside the gas-optics kernel since the last
     :func:`reset_launch_counts`."""
-    return MINOR_SCALED["gas_optics_interp"]
-
-
-def clrsky_gpts() -> int:
-    """G-points solved clear-sky since the last
-    :func:`reset_launch_counts`."""
-    return CLRSKY_GPTS["driver"]
+    return WORK["minor_scaled"]
 
 
 def sw_fused_gpts() -> int:
     """G-points whose SW optics a launch of the SW kernel formed itself
     since the last :func:`reset_launch_counts`."""
-    return SW_FUSED_GPTS["sw_2stream"]
+    return WORK["sw_fused_gpts"]
 
 
 def _nvcc() -> str:

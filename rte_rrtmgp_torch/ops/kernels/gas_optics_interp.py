@@ -145,7 +145,7 @@ def gas_optics_interp(kd, interp, play, tlay, col_gas, rayleigh: bool):
     (ncol, nlay, G), from the cells' ``play``, ``tlay`` (ncol, nlay) and
     ``col_gas`` (ncol, nlay, ngas+1; :func:`gas_optics.build_col_gas`, the
     dry column at index 0).  Each launch adds the chunk's number of minor
-    intervals to ``_build.MINOR_SCALED``."""
+    intervals to ``_build.WORK["minor_scaled"]``."""
     from .. import gas_optics
 
     tab_b = kd.krayl_rows if rayleigh else kd.planck_rows
@@ -216,5 +216,5 @@ def gas_optics_interp(kd, interp, play, tlay, col_gas, rayleigh: bool):
             stream_handle(dev))
     _build.check(rc, "gas_optics_interp")
     _build.LAUNCHES["gas_optics_interp"] += 1
-    _build.MINOR_SCALED["gas_optics_interp"] += len(specs)
+    _build.WORK["minor_scaled"] += len(specs)
     return out_a, out_b

@@ -20,7 +20,7 @@
   from which it forms tau, ssa and g itself; their twins are the plain
   chain (:func:`rte_rrtmgp_torch.ops.rte_sw.sw_optics_plain`) followed by
   the plane twins.  A launch counts as one of ``sw_2stream`` /
-  ``sw_2stream_lm`` and adds its G to :data:`_build.SW_FUSED_GPTS`.
+  ``sw_2stream_lm`` and adds its G to ``_build.WORK["sw_fused_gpts"]``.
 
 None needs G to be a multiple of 32 or 128, nor ncol a multiple of 8.  An
 LW column is one cluster of blocks, each a slice of consecutive g-points,
@@ -488,5 +488,5 @@ def _sw_launch(name, plane, ncol, nlay, G, planes, mu0, sfc_alb_dir,
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     if fused is not None:
-        _build.SW_FUSED_GPTS["sw_2stream"] += G
+        _build.WORK["sw_fused_gpts"] += G
     return up, dn + fdir, fdir

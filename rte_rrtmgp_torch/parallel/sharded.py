@@ -82,7 +82,7 @@ def sharded_columns_call(mesh: Mesh, impl, n_replicated: int, args,
 
 
 def sharded_step(mesh: Mesh, kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None,
-                 cellw=None, layer_major=None):
+                 cellw=True, layer_major=False):
     """The flagship step (``step.make_step``) on a (cols, gpt) mesh.
 
     The returned ``step(*args)`` takes the step's 16 arrays (global ones,

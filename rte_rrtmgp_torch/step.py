@@ -65,8 +65,8 @@ def atmos_arrays(ncol: int, nlay: int, dtype=np.float32, seed: int = 0) -> dict:
     )
 
 
-def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=None,
-              layer_major=None, clear_sky=False):
+def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=True,
+              layer_major=False, clear_sky=False):
     """The flagship forward step on the tables' device.  The returned
     ``step(p_lay, ..., dei)`` takes tensors (or arrays) in ``ARG_NAMES``
     order and returns {lw_flux_up, lw_flux_dn, lw_flux_net, sw_flux_up,
@@ -81,9 +81,7 @@ def make_step(kd_lw, kd_sw, clut_lw, clut_sw, gpt_chunk=None, cellw=None,
     bit-equal to those of ``clear_sky=False``.
 
     ``cellw`` / ``layer_major`` choose the layout, i.e. which kernels run
-    (``models/radiation.py``); ``None`` reads ``RTE_RRTMGP_PALLAS_CELLW`` /
-    ``RTE_RRTMGP_LAYERMAJOR``, else the tuned winner for the tables' device
-    (``utils/tuner.py``), else on / off, at each call."""
+    (``models/radiation.py``)."""
     device, dtype = kd_lw.device, kd_lw.dtype
 
     def step(p_lay, p_lev, t_lay, t_lev, t_sfc, vmr, col_dry, emis_sfc,

@@ -5,10 +5,9 @@ The stages are the driver's own: ``models/radiation.py``'s
 ``_solve_lw_impl`` / ``_solve_sw_impl`` run each stage
 (``radiation.STAGES``) inside a ``torch.profiler`` range of its name
 while a profiler runs, so this tool profiles the real ``step.make_step``
-and keeps no copy of the pipeline.  The layout is the step's:
-``config.cellw_enabled`` / ``config.layer_major_enabled`` resolve it (the
-environment, the tuned winner, the default) unless :func:`profile` is
-given ``cellw`` / ``layer_major``.  In every layout the minor gases are
+and keeps no copy of the pipeline.  The layout is :func:`profile`'s
+``cellw`` / ``layer_major`` (the step's default unless given).  In every
+layout the minor gases are
 part of ``*_gas_optics``: the default and layer-major layouts fuse them
 into one gas-optics launch a chunk, ``cellw=False`` runs the weight-plane
 kernel twice.
@@ -130,23 +129,19 @@ def stage_times(prof, cuda: bool, n: int = 1):
     return ms, calls
 
 
-def layout_name(device, cellw=None, layer_major=None) -> str:
-    """The step's layout on ``device``: ``cellw`` / ``layer_major`` as
-    given, else as ``config`` resolves them."""
-    cellw = config.cellw_enabled(device) if cellw is None else cellw
-    if layer_major is None:
-        layer_major = config.layer_major_enabled(device)
+def layout_name(cellw: bool = True, layer_major: bool = False) -> str:
+    """The name of the step's layout ``cellw`` / ``layer_major``."""
     if cellw and layer_major:
         return "layer_major"
     return "default" if cellw else "cellw_off"
 
 
 def profile(ncol=2048, nlay=72, gpt_chunk=128, device="cuda", warmup=2,
-            iters=5, tables=None, cellw=None, layer_major=None) -> dict:
+            iters=5, tables=None, cellw=True, layer_major=False) -> dict:
     """Profile the flagship step at (ncol, nlay, gpt_chunk), float32, on
     ``step.atmos_arrays(ncol, nlay)`` and ``tables`` (default
     ``step.build_tables(16)``), in the layout ``cellw`` / ``layer_major``
-    choose (``None``: as ``config`` resolves it).  Returns {"stages": {name:
+    choose.  Returns {"stages": {name:
     ms a step}, "calls", "sum_ms", "device_ms", "other_ms", "event_ms",
     "layout", "shape", "ngpt", "out": the profiled step's fluxes}."""
     dev = config.resolve_device(device)
@@ -168,7 +163,7 @@ def profile(ncol=2048, nlay=72, gpt_chunk=128, device="cuda", warmup=2,
             "device_ms": total,
             "other_ms": None if total is None else total - sum_ms,
             "event_ms": ev,
-            "layout": layout_name(dev, cellw, layer_major),
+            "layout": layout_name(cellw, layer_major),
             "shape": [ncol, nlay, gpt_chunk],
             "ngpt": [tables[0].ngpt, tables[1].ngpt], "out": outs[-1]}
 

@@ -12,10 +12,8 @@ quartiles are kept under ``"all"``.
 The winner goes to the tuner cache (``utils/tuner.py``) and to the
 checked-in table ``rte_rrtmgp_torch/tuning/tuned_defaults.json`` (or
 ``--defaults PATH``), keyed by the card's device kind, with the card's name
-and power limit.  ``config.cellw_enabled`` / ``config.layer_major_enabled``
-then resolve "environment > this winner > default" for that kind of card.
-
-All in one process: the port reads its layout switches at call time.
+and power limit.  It is a record: no solver reads it, the layout is the
+caller's ``cellw`` / ``layer_major`` (``step.make_step``).
 
 Usage (on a machine with a card):
     python -m rte_rrtmgp_torch.tuning.tune_radiation [--rounds 15] [--steps 5]

@@ -22,6 +22,7 @@ cloud; the CLI refuses to run without a card unless given ``--device cpu``
 (float32 by design) within 0.7 W m-2 of JAX's.
 """
 
+import functools
 import os
 
 import h5py
@@ -275,15 +276,18 @@ def test_cli_profiling_trace_and_summary(case, tmp_path, monkeypatch):
 
 def test_no_fluxes_under_layer_major_runs_no_solver(case, monkeypatch,
                                                     tmp_path):
-    """``--no-fluxes`` takes the optics-only exit where layer-major is
-    chosen (JAX's predicate: layer-major only with fluxes): no solver
-    runs, and the optical output equals the default layout's."""
+    """``--no-fluxes`` takes the optics-only exit where the solvers are
+    asked for layer-major (JAX's predicate: layer-major only with fluxes):
+    no solver runs, and the optical output equals the default layout's."""
+    from rte_rrtmgp_torch.models import RadiationSolverLW, RadiationSolverSW
     from rte_rrtmgp_torch.ops import rte_lw, rte_sw
     flags = ["--no-fluxes", "--output-optical", "--precision", "float64",
              "--device", "cpu"]
     monkeypatch.chdir(case[0])
     assert cli.main(flags + ["--output", str(tmp_path / "a.nc")]) == 0
-    monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "1")
+    for cls in (RadiationSolverLW, RadiationSolverSW):
+        monkeypatch.setattr(cls, "solve", functools.partialmethod(
+            cls.solve, layer_major=True))
     calls = []
     for mod, names in ((rte_lw, ("lw_solver_noscat", "lw_solver_noscat_broadband",
                                  "lw_solver_noscat_broadband_lm")),

@@ -17,8 +17,9 @@ from benchmark.tests.tiny import TINY, TINY_LIMITS
 from rte_rrtmgp_torch import step
 from rte_rrtmgp_torch.models.cloud_lut import CloudLUT
 from rte_rrtmgp_torch.models.kdist import KDist
+from rte_rrtmgp_torch.models import radiation
 from rte_rrtmgp_torch.models.radiation import _solve_lw_impl, _solve_sw_impl
-from rte_rrtmgp_torch.ops import gas_optics, kernels, rte_sw
+from rte_rrtmgp_torch.ops import gas_optics, rte_sw
 
 torch.set_num_threads(2)
 
@@ -140,15 +141,15 @@ def test_one_gas_optics_pass_a_chunk(case, monkeypatch, clear_sky):
         monkeypatch.setattr(gas_optics, name, counted)
     incs = _count_fused(monkeypatch, "default")
     _, args = _args(atm, torch.float32)
-    kernels.reset_launch_counts()
+    radiation.clrsky_gpts(reset=True)
     _run(raws, args, torch.float32, "default", clear_sky)
     ngpt_lw, ngpt_sw = TINY["ngpt_lw"], TINY["ngpt_sw"]
     assert calls == {"tau_majmin_and_pfrac": -(-ngpt_lw // CHUNK),
                      "tau_majmin_and_rayleigh": -(-ngpt_sw // CHUNK)}
     assert incs == ([0, 1] if clear_sky else [1]) * -(-ngpt_sw // CHUNK)
-    assert kernels.clrsky_gpts() == (ngpt_lw + ngpt_sw if clear_sky else 0)
-    kernels.reset_launch_counts()
-    assert kernels.clrsky_gpts() == 0
+    assert radiation.clrsky_gpts(reset=True) == (
+        ngpt_lw + ngpt_sw if clear_sky else 0)
+    assert radiation.clrsky_gpts() == 0
 
 
 @pytest.mark.parametrize("clear_sky", [False, True], ids=["off", "on"])

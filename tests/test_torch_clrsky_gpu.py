@@ -17,6 +17,7 @@ import torch
 
 from rte_rrtmgp_torch import step
 from rte_rrtmgp_torch.models.cloud_lut import CloudLUT
+from rte_rrtmgp_torch.models import radiation
 from rte_rrtmgp_torch.models.kdist import KDist
 from rte_rrtmgp_torch.ops import kernels
 
@@ -66,9 +67,10 @@ def _call(cell, layout, clear_sky):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    radiation.clrsky_gpts(reset=True)
     out = run(*args)
     torch.cuda.synchronize()
-    return (out, kernels.launch_counts(), kernels.clrsky_gpts(),
+    return (out, kernels.launch_counts(), radiation.clrsky_gpts(),
             torch.cuda.max_memory_allocated())
 
 

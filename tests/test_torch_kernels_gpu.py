@@ -653,7 +653,6 @@ def test_cli_rt_on_card_launches_gas_optics_kernel(cuda, tmp_path,
     the SW pass 1 (one chunk, one g-point), plus one LW gas-optics and one
     LW sweep launch with ``--longwave``; the fluxes finite and the
     incident flux exact."""
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
     inputs.make_case_files(str(tmp_path), "allsky", gpt_per_band=2)
     atm = make_atmosphere(4 * 3, 16, seed=3)
     inputs.write_input_nc(str(tmp_path / "rte_rrtmgp_input.nc"), atm, 4, 3,
@@ -723,7 +722,6 @@ def test_cli_bw_on_card_launches_gas_optics_kernel(cuda, tmp_path,
     cloud camera; the radiance and images finite.  Without a chunk in
     ``lanes`` with the walk NEE; with chunks in the CLI's default scan
     with the field NEE."""
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
     _bw_case(tmp_path)
     monkeypatch.chdir(tmp_path)
     kernels.reset_launch_counts()
@@ -791,8 +789,6 @@ def test_cli_on_card_launches_kernels_and_matches_cpu(cuda, tmp_path,
     or 1e-5 of each array's largest value (optical properties and
     sources) of the same CLI with ``--device cpu``."""
     case, flags, expected = CLI_RUNS[run]
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
-    monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "0")
     inputs.make_case_files(str(tmp_path), case, gpt_per_band=4)
     monkeypatch.chdir(tmp_path)
     kernels.reset_launch_counts()
@@ -811,14 +807,12 @@ def test_cli_on_card_launches_kernels_and_matches_cpu(cuda, tmp_path,
             assert err <= tol, (v, err, tol)
 
 
-def test_crosscheck_aerosky_on_card(cuda, tmp_path, monkeypatch):
+def test_crosscheck_aerosky_on_card(cuda, tmp_path):
     """``tools/crosscheck``'s aerosky case (clouds and aerosols, both
     delta-scaled, ``gpt_per_band`` 8, ``gpt_chunk`` 64, default layout):
     the card's float32 fluxes within 0.7 W m-2 of the CPU's float32, B1 4,
     B2 2 and B3 2 launches on the card (two chunks a spectrum), none on
     the CPU."""
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
-    monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "0")
     res = crosscheck.run(str(tmp_path), device=cuda, cases=("aerosky",))
     r = res["aerosky"]
     assert res["ok"] and r["ok"]

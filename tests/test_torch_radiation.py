@@ -7,7 +7,8 @@
   0.7 W m-2 (the crosscheck gate; f32 is never held to the f64 goldens).
 * Both gates hold in each of the step's layouts (``cellw=False``,
   ``layer_major=True``), and each layout's broadband fluxes agree with JAX
-  in f64; ``None`` layouts come from the environment.
+  in f64; the JAX package's layout switches in the environment change
+  nothing.
 * The solver classes' other outputs (by-band fluxes, optical properties,
   several Gauss angles, night columns) agree with JAX in f64.
 * With no card, an entry point called without ``device="cpu"`` raises.
@@ -30,7 +31,8 @@ from rte_rrtmgp_torch import config, convert, step
 from rte_rrtmgp_torch.cases.profiles import make_atmosphere
 from rte_rrtmgp_torch.data import synthetic
 from rte_rrtmgp_torch.models import (AerosolLUT, CloudLUT, KDist,
-                                     RadiationSolverLW, RadiationSolverSW)
+                                     RadiationSolverLW, RadiationSolverSW,
+                                     radiation)
 from rte_rrtmgp_torch.models.kdist import META_FIELDS, TABLE_FIELDS
 
 torch.set_num_threads(2)
@@ -292,23 +294,74 @@ def test_solve_layouts_match_jax(options_case, monkeypatch, longwave,
                                    rtol=1e-10, atol=0.0, err_msg=k)
 
 
-def test_layout_from_environment(options_case, monkeypatch):
-    """cellw / layer_major left as None read RTE_RRTMGP_PALLAS_CELLW
-    (default on) and RTE_RRTMGP_LAYERMAJOR (default off), parsed as the JAX
-    package parses them."""
-    from rte_rrtmgp_torch.ops import gas_optics as go, rte_lw
-    monkeypatch.delenv("RTE_RRTMGP_PALLAS_CELLW", raising=False)
-    monkeypatch.delenv("RTE_RRTMGP_LAYERMAJOR", raising=False)
-    assert config.cellw_enabled() and not config.layer_major_enabled()
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "off")
+def test_layout_from_environment(monkeypatch):
+    """The JAX package's layout switches have no effect on the port:
+    with ``RTE_RRTMGP_PALLAS_CELLW=0`` and ``RTE_RRTMGP_LAYERMAJOR=1`` set,
+    ``make_step`` at its default layout calls the kernel entries of B1-B3
+    (the per-cell-weight gas optics, the LW sweep, the fused SW solve)
+    and no other."""
+    from rte_rrtmgp_torch.ops.kernels import (gas_optics_interp as b1,
+                                              interp_rows as b45, solvers)
+    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "0")
     monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "1")
-    assert not config.cellw_enabled() and config.layer_major_enabled()
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "true")
-    solver, kw, _ = options_case[True]
-    lm = _count_calls(monkeypatch, rte_lw, "lw_solver_noscat_broadband_lm")
-    planes = _count_calls(monkeypatch, go, "tau_major_and_pfrac")
-    solver.solve(**dict(kw, output_bnd_fluxes=False, output_optical=False))
-    assert len(lm) == 3 and not planes
+    entries = ((b1, "gas_optics_interp"), (b45, "interp_rows_multi"),
+               (b45, "interp_rows"), (solvers, "lw_sweep"),
+               (solvers, "lw_sweep_lm"), (solvers, "sw_2stream"),
+               (solvers, "sw_2stream_lm"), (solvers, "sw_2stream_fused"),
+               (solvers, "sw_2stream_fused_lm"))
+    calls = {name: _count_calls(monkeypatch, mod, name)
+             for mod, name in entries}
+    arrs = step.atmos_arrays(3, 8)
+    step.make_step(*step.build_tables(1, device="cpu"))(
+        *(arrs[k] for k in step.ARG_NAMES))
+    assert {k: len(v) for k, v in calls.items() if v} == {
+        "gas_optics_interp": 2, "lw_sweep": 1, "sw_2stream_fused": 1}
+
+
+# The stage ranges (``radiation.STAGES``) that one clear-sky step of two
+# spectral chunks a spectrum enters, in order, as recorded before the
+# layout became an argument: the benchmark's stage metrics and its idle
+# attribution read these names.
+CLRSKY_STAGES = [
+    "lw_inputs", "lw_col_gas", "lw_cloud_optics", "lw_fluxes",
+    "lw_fluxes_clrsky", "lw_interpolation", "lw_gas_optics", "lw_planck",
+    "lw_solve_clrsky", "lw_fluxes_clrsky", "lw_cloud_add", "lw_solve",
+    "lw_fluxes", "lw_gas_optics", "lw_planck", "lw_solve_clrsky",
+    "lw_fluxes_clrsky", "lw_cloud_add", "lw_solve", "lw_fluxes",
+    "lw_fluxes", "sw_inputs", "sw_col_gas", "sw_cloud_optics", "sw_fluxes",
+    "sw_fluxes_clrsky", "sw_interpolation", "sw_gas_optics",
+    "sw_solve_clrsky", "sw_fluxes_clrsky", "sw_solve", "sw_fluxes",
+    "sw_gas_optics", "sw_solve_clrsky", "sw_fluxes_clrsky", "sw_solve",
+    "sw_fluxes", "sw_fluxes"]
+
+CLRSKY_STAGES_LM = [
+    "lw_inputs", "lw_col_gas", "lw_cloud_optics", "lw_fluxes",
+    "lw_fluxes_clrsky", "lw_interpolation", "lw_layer_major",
+    "lw_gas_optics", "lw_planck", "lw_solve_clrsky", "lw_fluxes_clrsky",
+    "lw_cloud_add", "lw_solve", "lw_fluxes", "lw_gas_optics", "lw_planck",
+    "lw_solve_clrsky", "lw_fluxes_clrsky", "lw_cloud_add", "lw_solve",
+    "lw_fluxes", "lw_fluxes", "sw_inputs", "sw_col_gas", "sw_cloud_optics",
+    "sw_fluxes", "sw_fluxes_clrsky", "sw_interpolation", "sw_layer_major",
+    "sw_gas_optics", "sw_solve_clrsky", "sw_fluxes_clrsky", "sw_solve",
+    "sw_fluxes", "sw_gas_optics", "sw_solve_clrsky", "sw_fluxes_clrsky",
+    "sw_solve", "sw_fluxes", "sw_fluxes"]
+
+
+@pytest.mark.parametrize("layout", ["default", "cellw_off", "layer_major"])
+def test_clear_sky_step_enters_the_stage_ranges_in_order(layout):
+    cellw, layer_major = LAYOUTS.get(layout, (True, False))
+    arrs = step.atmos_arrays(4, 12)
+    run = step.make_step(*step.build_tables(2, device="cpu"), gpt_chunk=16,
+                         cellw=cellw, layer_major=layer_major,
+                         clear_sky=True)
+    want = CLRSKY_STAGES_LM if layout == "layer_major" else CLRSKY_STAGES
+    names = set(radiation.STAGES) | set(want)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run(*(arrs[k] for k in step.ARG_NAMES))
+    got = sorted((e for e in prof.events() if e.name in names),
+                 key=lambda e: (e.time_range.start, e.id))
+    assert [e.name for e in got] == want
 
 
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):

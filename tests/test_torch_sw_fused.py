@@ -234,7 +234,7 @@ def test_sw_tile_bands(bands, gt, nbt):
 
 
 def test_fused_counter_resets():
-    _build.SW_FUSED_GPTS["sw_2stream"] = 7
+    _build.WORK["sw_fused_gpts"] = 7
     assert kernels.sw_fused_gpts() == 7
     kernels.reset_launch_counts()
     assert kernels.sw_fused_gpts() == 0

@@ -91,9 +91,7 @@ def test_stage_chain_matches_step(case, layout, chunk):
     assert res["calls"]["lw_fluxes"] == nchunks + 2
 
 
-def test_profile_times_every_stage(capsys, monkeypatch):
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
-    monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "0")
+def test_profile_times_every_stage(capsys):
     assert profile_stages.main(["8", "24", "128", "--device", "cpu",
                                 "--iters", "1"]) == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -1,8 +1,7 @@
-"""The port's autotuner (``rte_rrtmgp_torch/utils/tuner.py``), the layout
-switches it feeds (``config.cellw_enabled`` / ``layer_major_enabled``:
-environment > persisted winner for the device kind > default) and the
-checked-in winners table.  The tuner cases are those of
-``tests/test_tuner.py`` without the tracers."""
+"""The port's autotuner (``rte_rrtmgp_torch/utils/tuner.py``), the
+checked-in winners table, and the solvers' independence from both: the
+layout is the caller's argument, and no persisted winner changes it.  The
+tuner cases are those of ``tests/test_tuner.py`` without the tracers."""
 
 import json
 import time
@@ -14,10 +13,9 @@ import torch
 import jax  # noqa: F401  (both frameworks load in every port test file)
 from rte_rrtmgp_tpu.utils import tuner as jtuner
 
-from rte_rrtmgp_torch import config
 from rte_rrtmgp_torch.cases.profiles import make_atmosphere
-from rte_rrtmgp_torch.data import synthetic
-from rte_rrtmgp_torch.models import KDist, RadiationSolverLW, raytracer_bw
+from rte_rrtmgp_torch.models import (RadiationSolverLW, RadiationSolverSW,
+                                     raytracer_bw)
 from rte_rrtmgp_torch.ops import rte_lw
 from rte_rrtmgp_torch.utils import tuner
 
@@ -35,9 +33,7 @@ def _reset():
 def isolated_cache(tmp_path, monkeypatch):
     """A temporary user cache; the checked-in table is still read."""
     monkeypatch.setenv("RTE_RRTMGP_TUNER_CACHE", str(tmp_path / "tune.json"))
-    for k in ("RTE_RRTMGP_TUNER_DISABLE", "RTE_RRTMGP_PALLAS_CELLW",
-              "RTE_RRTMGP_LAYERMAJOR"):
-        monkeypatch.delenv(k, raising=False)
+    monkeypatch.delenv("RTE_RRTMGP_TUNER_DISABLE", raising=False)
     _reset()
     yield tmp_path / "tune.json"
     _reset()
@@ -130,39 +126,59 @@ def test_winners_resolve_per_workload_and_device_kind(isolated_cache,
         jtuner._disk_loaded = False
 
 
+def _solves(monkeypatch):
+    """An LW solve, an SW solve and a step on the CPU in float64, with the
+    calls of the layer-major solvers and of the weight-plane gas optics
+    counted."""
+    from rte_rrtmgp_torch import step
+    from rte_rrtmgp_torch.ops import gas_optics, rte_sw
+
+    calls = []
+    for mod, name in ((rte_lw, "lw_solver_noscat_broadband_lm"),
+                      (rte_sw, "sw_solver_2stream_fused_broadband_lm"),
+                      (gas_optics, "tau_major_and_pfrac"),
+                      (gas_optics, "tau_major_and_rayleigh")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: (
+            calls.append(_n), _fn(*a, **kw))[1])
+    kd_lw, kd_sw, clut_lw, clut_sw = step.build_tables(
+        1, dtype=torch.float64, device="cpu")
+    atm = make_atmosphere(2, 6, seed=1)
+    common = dict(gas_concs=atm["gas_concs"], p_lay=atm["p_lay"],
+                  p_lev=atm["p_lev"], t_lay=atm["t_lay"])
+    lw = RadiationSolverLW(kd_lw).solve(
+        t_lev=atm["t_lev"], t_sfc=atm["t_sfc"],
+        emis_sfc=np.full((2, kd_lw.nbnd), 0.98), **common)
+    alb = np.full((2, kd_sw.nbnd), 0.06)
+    sw = RadiationSolverSW(kd_sw).solve(mu0=atm["mu0"], sfc_alb_dir=alb,
+                                        sfc_alb_dif=alb, **common)
+    arrs = step.atmos_arrays(2, 6, dtype=np.float64)
+    out = step.make_step(kd_lw, kd_sw, clut_lw, clut_sw)(
+        *(arrs[k] for k in step.ARG_NAMES))
+    for fluxes in (lw, sw, out):
+        assert all(bool(torch.isfinite(v).all()) for v in fluxes.values())
+    return calls
+
+
 def test_layout_switches_env_then_winner_then_default(isolated_cache,
                                                       monkeypatch):
-    cpu = torch.device("cpu")
-    assert config.cellw_enabled(cpu) and not config.layer_major_enabled(cpu)
+    """A persisted ``{"cellw": 0, "layermajor": 1}`` winner for the CPU's
+    kind leaves the solvers and the step in the default layout."""
     _persist_step_winner({"gpt_chunk": None, "cellw": 0, "layermajor": 1},
                          "cpu")
-    assert not config.cellw_enabled(cpu) and config.layer_major_enabled(cpu)
-    monkeypatch.setenv("RTE_RRTMGP_PALLAS_CELLW", "1")
-    monkeypatch.setenv("RTE_RRTMGP_LAYERMAJOR", "off")
-    assert config.cellw_enabled(cpu) and not config.layer_major_enabled(cpu)
+    assert tuner.best_kernel_opts("cpu") == {"gpt_chunk": None, "cellw": 0,
+                                             "layermajor": 1}
+    assert _solves(monkeypatch) == []
 
 
 def test_cpu_solve_never_reads_a_card_winner(isolated_cache, monkeypatch):
-    """A card's layer-major winner does not reach a CPU solve; a winner for
-    the CPU's own kind does."""
-    _persist_step_winner({"cellw": 1, "layermajor": 1}, H100)
-    lm_calls = []
-    fn = rte_lw.lw_solver_noscat_broadband_lm
-    monkeypatch.setattr(rte_lw, "lw_solver_noscat_broadband_lm",
-                        lambda *a, **kw: (lm_calls.append(1), fn(*a, **kw))[1])
-    kd = KDist.from_raw(synthetic.make_kdist_raw(True, gpt_per_band=1),
-                        ["h2o", "co2", "o3", "n2o", "co", "ch4", "o2", "n2"],
-                        dtype=torch.float64, device="cpu")
-    atm = make_atmosphere(2, 6, seed=1)
-    solve = lambda: RadiationSolverLW(kd).solve(
-        gas_concs=atm["gas_concs"], p_lay=atm["p_lay"], p_lev=atm["p_lev"],
-        t_lay=atm["t_lay"], t_lev=atm["t_lev"], t_sfc=atm["t_sfc"],
-        emis_sfc=np.full((2, kd.nbnd), 0.98))
-    solve()
-    assert not lm_calls
-    _persist_step_winner({"cellw": 1, "layermajor": 1}, "cpu")
-    solve()
-    assert len(lm_calls) == 1
+    """No solve reads the tuner's winners: with the lookup raising, an LW
+    solve, an SW solve and a step still run on the CPU."""
+    def refuse(*a, **kw):
+        raise AssertionError("a solve read a tuned winner")
+
+    monkeypatch.setattr(tuner, "best_workload_opts", refuse)
+    assert _solves(monkeypatch) == []
 
 
 def test_checked_in_table_names_only_cards(isolated_cache, monkeypatch):
